@@ -11,10 +11,14 @@ one JSON line each:
 1. ``device``: the card, as torch and ``nvidia-smi`` name it;
 2. ``kernels``: every hand-written kernel, built from source;
 3. ``fused_stft``: the kernel against its plain version (Tacotron, HiFi-GAN
-   and pre-padded framing, with and without the linear output, both
-   ``algorithm`` values, a clip under 128 frames, and a bucket of 8 clips of
-   2-10 s), its time, the time of the ``torch.stft`` chain as a library
-   yardstick, and its bound;
+   and pre-padded framing, with and without the linear output, a clip under
+   128 frames, an alternating signal whose energy sits in the Nyquist bin,
+   silence, and a bucket of 8 clips of 2-10 s), each side's error against a
+   float64 ``torch.fft.rfft`` reference, the kernel's time at the bucket and
+   at the voice-conversion clip beside the plain version's and the
+   ``torch.stft`` chain's (a library yardstick), each as the call's time
+   seen from the host (``ms``, ``cuda_ms``) and as device time
+   (``device_ms``), and its bound;
 4. ``featurize``: ``featurize_batch(mode="linear")`` on that bucket, twice
    (the first call in the process, then warm), held against the CPU, with
    the host/device split of each call's wall time;
@@ -34,6 +38,7 @@ lines. Needs one CUDA device; imports no JAX.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -73,8 +78,9 @@ def gpu_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, flush: torch.Tensor | None = None) -> float:
-    """Mean device time of ``fn`` in ms (CUDA events around each call; the
-    L2 cache is flushed before each call when ``flush`` is given)."""
+    """Mean time of ``fn`` in ms from CUDA events around each call, the
+    host's time to issue it included (the L2 cache is flushed before each
+    call by zeroing ``flush`` when given)."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
@@ -90,6 +96,26 @@ def cuda_ms(fn, iters: int = 20, flush: torch.Tensor | None = None) -> float:
     return total / iters
 
 
+def device_ms(fn, flush: torch.Tensor, iters: int = 20) -> float:
+    """Mean device time of one call of ``fn`` in ms, with the L2 cache cold:
+    ``iters`` calls, each after a read of ``flush`` (more than the L2 holds,
+    so the cache is left holding clean lines of it), are captured in one
+    CUDA graph, and the graph's replay time less that of a graph of the reads
+    alone is divided by ``iters``. The host's time to issue the calls is
+    left out."""
+    fn()  # builds, plans and caches outside the capture
+    torch.cuda.synchronize()
+
+    def replay_ms(body) -> float:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                body()
+        return cuda_ms(g.replay, iters=5)
+
+    return (replay_ms(lambda: (flush.sum(), fn())) - replay_ms(flush.sum)) / iters
+
+
 def voiced_clip(rng: np.random.Generator, seconds: float) -> np.ndarray:
     """Speech-like clip: a gliding harmonic tone with pauses and breath
     noise, cut to a hop multiple."""
@@ -101,6 +127,46 @@ def voiced_clip(rng: np.random.Generator, seconds: float) -> np.ndarray:
     gate = (np.sin(2 * np.pi * rng.uniform(0.5, 1.5) * t) > -0.6).astype(np.float64)
     y = 0.25 * y * gate + 0.01 * rng.standard_normal(n)
     return np.clip(y, -1, 1).astype(np.float32)
+
+
+def kernel_cell():
+    """The kernel cell: 8 speech-like clips of 2-10 s, the same clips in one
+    (8, T) array, and the bucket ``featurize_batch`` builds of them (each clip
+    reflect-padded by n_fft/2 in a slot of 229 376 + 1024 samples)."""
+    n_fft = 1024
+    rng = np.random.default_rng(0)
+    waves = [voiced_clip(rng, s) for s in np.linspace(2.0, 10.0, 8)]
+    chunk = 32768
+    t_slot = -(-max(len(w) for w in waves) // chunk) * chunk
+    raw = np.zeros((len(waves), t_slot), np.float32)
+    padded = np.zeros((len(waves), t_slot + n_fft), np.float32)  # featurize_batch's buffer
+    for i, w in enumerate(waves):
+        raw[i, :len(w)] = w
+        padded[i, :len(w) + n_fft] = np.pad(w, (n_fft // 2,) * 2, mode="reflect")
+    return waves, raw, padded
+
+
+def rfft_reference(y: torch.Tensor, cfg, center, mag_eps: float):
+    """(log-mel, linear) of ``mel_spectrogram_fused``'s function in float64
+    by ``torch.fft.rfft``: what tells which side is off where the kernel and
+    the plain version (an FP32 DFT product) disagree."""
+    from xva_trainer_tpu_torch.ops.mel import mel_filterbank
+    from xva_trainer_tpu_torch.ops.stft import (frame_signal, hann_window, num_frames_for,
+                                                pad_for_center)
+
+    nf = num_frames_for(y.shape[-1], cfg, center)
+    yp = pad_for_center(y.double(), cfg, center)
+    yp = yp.reshape(-1, yp.shape[-1])
+    need = (nf - 1) * cfg.hop_length + cfg.n_fft
+    yp = torch.nn.functional.pad(yp, (0, max(0, need - yp.shape[-1])))
+    w = torch.from_numpy(hann_window(cfg.win_length, cfg.n_fft, np.float64)).to(y.device)
+    spec = torch.fft.rfft(frame_signal(yp, cfg.n_fft, cfg.hop_length, nf) * w, dim=-1)
+    mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + mag_eps)
+    fb = torch.from_numpy(mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin,
+                                         cfg.fmax).astype(np.float64)).to(y.device)
+    mel = torch.log(torch.clamp(mag @ fb.T, min=cfg.clip_val)).transpose(1, 2)
+    mag = mag.transpose(1, 2)
+    return (mel[0], mag[0]) if y.dim() == 1 else (mel, mag)
 
 
 def profiled(fn):
@@ -186,72 +252,108 @@ def main() -> int:
 
     # ---- 3. fused_stft: the kernel against its plain version ----
     cfg = DEFAULT_MEL
-    rng = np.random.default_rng(0)
-    waves = [voiced_clip(rng, s) for s in np.linspace(2.0, 10.0, 8)]
-    chunk = 32768
-    t_slot = -(-max(len(w) for w in waves) // chunk) * chunk
-    raw = np.zeros((len(waves), t_slot), np.float32)
-    padded = np.zeros((len(waves), t_slot + cfg.n_fft), np.float32)  # featurize_batch's buffer
-    for i, w in enumerate(waves):
-        raw[i, :len(w)] = w
-        padded[i, :len(w) + cfg.n_fft] = np.pad(w, (cfg.n_fft // 2,) * 2, mode="reflect")
+    waves, raw, padded = kernel_cell()
     raw_d, bucket = torch.from_numpy(raw).to(dev), torch.from_numpy(padded).to(dev)
     short = torch.from_numpy(waves[0][:100 * HOP]).to(dev)  # (T,), 101 frames
+    nyquist = torch.from_numpy(0.5 * (-1.0) ** np.arange(32 * HOP)).float().to(dev)
+    silence = torch.zeros((2, 32 * HOP), device=dev)
     cases, max_err, mean_err = [], 0.0, 0.0
-    for algorithm in fs.ALGORITHMS:
-        for name, y, center, eps in (("tacotron", raw_d, True, 0.0),
-                                     ("hifigan", raw_d, False, 1e-9),
-                                     ("prepadded", bucket, None, 0.0),
-                                     ("short", short, True, 0.0)):
-            for lin in (True, False):
-                kw = dict(center=center, mag_eps=eps, return_linear=lin, algorithm=algorithm)
-                out = fs.mel_spectrogram_fused(y, cfg, **kw)
-                ref = fs.mel_spectrogram_fused_reference(y, cfg, **kw)
-                torch.cuda.synchronize()
-                for part, o, r in zip(("mel", "linear"), *((out, ref) if lin else ([out], [ref]))):
-                    d = (o - r).abs()
-                    mx, mean = d.max().item(), d.mean().item()
-                    max_err, mean_err = max(max_err, mx), max(mean_err, mean)
-                    cases.append({"case": name, "algorithm": algorithm, "output": part,
-                                  "shape": list(o.shape), "mean_abs_err": mean,
-                                  "max_abs_err": mx})
-                    # the max bar too: a wrong bin or frame tile hides in the mean
-                    check(mean < TOL and mx < TOL and bool(torch.isfinite(o).all())
-                          and o.shape == r.shape,
-                          f"fused_stft {name} {kw} {part}: mean {mean} max {mx}")
+    for name, y, center, eps in (("tacotron", raw_d, True, 0.0),
+                                 ("hifigan", raw_d, False, 1e-9),
+                                 ("prepadded", bucket, None, 0.0),
+                                 ("short", short, True, 0.0),
+                                 ("nyquist", nyquist, True, 0.0),
+                                 ("silence", silence, True, 0.0)):
+        f64 = rfft_reference(y, cfg, center, eps)
+        for lin in (True, False):
+            kw = dict(center=center, mag_eps=eps, return_linear=lin)
+            out = fs.mel_spectrogram_fused(y, cfg, **kw)
+            ref = fs.mel_spectrogram_fused_reference(y, cfg, **kw)
+            torch.cuda.synchronize()
+            for part, o, r, r64 in zip(("mel", "linear"),
+                                       *((out, ref) if lin else ([out], [ref])), f64):
+                d = (o - r).abs()
+                mx, mean = d.max().item(), d.mean().item()
+                max_err, mean_err = max(max_err, mx), max(mean_err, mean)
+                cases.append({"case": name, "output": part, "linear_on": lin,
+                              "shape": list(o.shape), "mean_abs_err": mean, "max_abs_err": mx,
+                              "kernel_max_abs_err_vs_f64": (o.double() - r64).abs().max().item(),
+                              "plain_max_abs_err_vs_f64": (r.double() - r64).abs().max().item()})
+                # the max bar too: a wrong bin or frame tile hides in the mean
+                check(mean < TOL and mx < TOL and bool(torch.isfinite(o).all())
+                      and o.shape == r.shape,
+                      f"fused_stft {name} {kw} {part}: mean {mean} max {mx}")
     # The bound counts what the function needs: the input read once and both
     # outputs written once; per frame, the window, a real FFT (2.5 N log2 N),
     # the magnitudes (4 per bin), 2 per nonzero mel weight, the clamp and log.
-    # dft_bound_ms counts the kernel's own arithmetic instead: the direct DFT
-    # product (2 * n_fft * 2 * n_freqs per frame) and the sparse mel product.
-    B, T = bucket.shape
-    F = 1 + (T - cfg.n_fft) // cfg.hop_length
+    # kernel_gflop counts the kernel's own arithmetic instead, per frame: the
+    # window (1024), three radix-8 passes of 64 butterflies (56 each) with 7
+    # complex twiddle products (6 each) in the last two, 21 per bin to turn
+    # the 512-point complex FFT into bins and magnitudes (4 for the Nyquist
+    # bin), and the sparse mel product.
     fb = mel_basis(cfg, dev)
     mel_nnz = int((fb != 0).sum())
     n = cfg.n_fft
-    flops = B * F * (n + 2.5 * n * np.log2(n) + 4 * cfg.n_freqs + 2 * mel_nnz + 2 * cfg.n_mels)
-    nbytes = 4 * (B * T + B * F * (cfg.n_mels + cfg.n_freqs))
-    t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_HBM_BYTES_S * 1e3
-    bound_ms, bound_by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-    dft_flops = B * F * (2 * n * 2 * cfg.n_freqs + 2 * mel_nnz)
-    dft_bound_ms = max(dft_flops / H100_FP32_FLOPS * 1e3, t_bytes)
-    flush = torch.empty(64 * 2 ** 20 // 4, device=dev)  # more than the 50 MB L2
+
+    def bound(B, T, F):
+        flops = B * F * (n + 2.5 * n * np.log2(n) + 4 * cfg.n_freqs + 2 * mel_nnz
+                         + 2 * cfg.n_mels)
+        nbytes = 4 * (B * T + B * F * (cfg.n_mels + cfg.n_freqs))
+        t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_HBM_BYTES_S * 1e3
+        return flops, nbytes, max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+    B, T = bucket.shape
+    F = 1 + (T - n) // cfg.hop_length
+    flops, nbytes, bound_ms, bound_by = bound(B, T, F)
+    kernel_flops = B * F * (n + 3 * 64 * 56 + 2 * 64 * 7 * 6 + 512 * 21 + 4 + 2 * mel_nnz
+                            + 2 * cfg.n_mels)
+    flush = torch.zeros(64 * 2 ** 20 // 4, device=dev)  # more than the 50 MB L2
     window = torch.hann_window(cfg.win_length, periodic=True, device=dev)
 
-    def library():  # the torch.stft → magnitude → mel matmul → log chain
-        spec = torch.stft(bucket, cfg.n_fft, cfg.hop_length, window=window, center=False,
-                          return_complex=True).abs()
+    def library(y, center):  # the torch.stft → magnitude → mel matmul → log chain
+        spec = torch.stft(y, cfg.n_fft, cfg.hop_length, window=window, center=center,
+                          pad_mode="reflect", return_complex=True).abs()
         return torch.log(torch.clamp(fb @ spec, min=cfg.clip_val)), spec
 
-    kw = dict(center=None, return_linear=True)
-    timing = {"ms": cuda_ms(lambda: fs.mel_spectrogram_fused(bucket, cfg, **kw), flush=flush),
-              "plain_ms": cuda_ms(lambda: fs.mel_spectrogram_fused_reference(bucket, cfg, **kw),
-                                  flush=flush),
-              "library_ms": cuda_ms(library, flush=flush)}
+    fns = {"ms": lambda y, c: fs.mel_spectrogram_fused(y, cfg, center=c, return_linear=True),
+           "plain_ms": lambda y, c: fs.mel_spectrogram_fused_reference(y, cfg, center=c,
+                                                                       return_linear=True),
+           "library_ms": library}
+    vc_clip = torch.from_numpy(waves[0]).to(dev)  # voice conversion's clip: (T,), 173 frames
+    # "ms": the call as the host sees it, timed as in earlier runs (CUDA
+    # events around the call, after zeroing the flush buffer); "device_ms":
+    # device time by graph replay, after a read of the flush buffer
+    timing = {}
+    for shape, y, center in (("bucket", bucket, None), ("voice_convert", vc_clip, True)):
+        runs = {key: [] for k in fns for key in (k, k.replace("ms", "device_ms"))}
+        for order in (list(fns), list(fns)[::-1]):  # in turns, forward then back
+            for k in order:
+                call = functools.partial(fns[k], y, center)
+                runs[k].append(cuda_ms(call, flush=flush))
+                runs[k.replace("ms", "device_ms")].append(device_ms(call, flush))
+        timing[shape] = {k: sum(v) / len(v) for k, v in runs.items()}
+        timing[shape]["runs"] = runs
+    vc_frames = 1 + vc_clip.shape[0] // cfg.hop_length
+    _, vc_bytes, vc_bound_ms, _ = bound(1, vc_clip.shape[0], vc_frames)
+    timing["voice_convert"].update(frames=vc_frames, bound_ms=vc_bound_ms)
+    for t, b_ms, b_bytes in ((timing["bucket"], bound_ms, nbytes),
+                             (timing["voice_convert"], vc_bound_ms, vc_bytes)):
+        for key in ("ms", "device_ms"):
+            t[f"bound_share_of_{key}"] = b_ms / t[key]
+            t[f"gb_per_s_of_{key}"] = b_bytes / t[key] / 1e6
+    # a yardstick of the card's write rate: PyTorch's own fill of as many
+    # bytes as the bucket's linear output, and of 8 times as many, which
+    # tells the rate from a launch's fixed cost
+    tb = timing["bucket"]
+    for key, times in (("linear_fill", 1), ("linear_fill_8x", 8)):
+        buf = torch.empty((times * B, cfg.n_freqs, F), device=dev)
+        tb[f"{key}_ms"] = device_ms(functools.partial(buf.fill_, 0.0), flush)
+        tb[f"{key}_gb_per_s"] = 4 * buf.numel() / tb[f"{key}_ms"] / 1e6
     emit("fused_stft", bucket=[B, T], frames=F, cases=cases, max_abs_err=max_err,
-         mean_abs_err=mean_err, **timing, library="torch.stft + abs + mel matmul + log",
+         mean_abs_err=mean_err, timing=timing, library="torch.stft + abs + mel matmul + log",
          gflop=flops / 1e9, mel_nnz=mel_nnz, mbytes=nbytes / 1e6, bound_ms=bound_ms,
-         bound_by=bound_by, dft_gflop=dft_flops / 1e9, dft_bound_ms=dft_bound_ms, gpu=smi)
+         bound_by=bound_by, kernel_gflop=kernel_flops / 1e9,
+         kernel_ops_ms=kernel_flops / H100_FP32_FLOPS * 1e3, gpu=smi)
 
     # ---- the main path: 4. featurize → 5. synthesize → 6. voice_convert ----
     _cuda.reset_launch_counts()
@@ -362,9 +464,10 @@ def main() -> int:
         "name": "fused_stft", "route": "cuda",
         "source": "xva_trainer_tpu_torch/csrc/fused_stft.cu",
         "replaces": "xva_trainer_tpu/ops/pallas_stft.py:127",
-        "launches": launches["fused_stft"], "max_abs_err": max_err, "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": timing["library_ms"],
+        "launches": launches["fused_stft"], "max_abs_err": max_err, "ms": tb["ms"],
+        "plain_ms": tb["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": tb["library_ms"], "device_ms": tb["device_ms"],
+        "plain_device_ms": tb["plain_device_ms"], "library_device_ms": tb["library_device_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     missing = [k["name"] for k in kernels if k["launches"] < 1]

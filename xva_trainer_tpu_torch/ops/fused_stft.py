@@ -10,10 +10,9 @@ with the same host contract:
 - input (T,) or (B, T); output (..., n_mels, frames) and, with
   ``return_linear``, (..., n_freqs, frames).
 
-``algorithm`` ("split" or "full") is accepted for parity with the JAX
-function. The two TPU kernels compute one function and differ only in how
-the TPU's matrix unit groups the DFT; both values launch the one CUDA kernel
-here, and both give the same plain version.
+The JAX function's ``algorithm`` ("split" or "full") chooses how the TPU's
+matrix unit groups the DFT; both compute one function, which the one CUDA
+kernel here computes by an FFT, so the port takes no such argument.
 
 A CUDA tensor goes through the kernel (n_fft must be 1024; any hop) or the
 call raises; a CPU tensor goes through the plain version. Nothing falls back
@@ -32,57 +31,63 @@ import torch.nn.functional as F
 from . import _cuda
 from .mel import mel_filterbank
 from .stft import (DEFAULT_MEL, MelConfig, device_constant, dft_basis, frame_signal,
-                   mel_basis, num_frames_for, pad_for_center)
+                   hann_window, mel_basis, num_frames_for, pad_for_center)
 
-ALGORITHMS = ("split", "full")
 KERNEL = "fused_stft"
 KERNEL_N_FFT = 1024
-_N_BINS = KERNEL_N_FFT // 2   # bins of the kernel's tiled product; + Nyquist
-_TILE = 128                   # bins per tile of the kernel's basis layout
+_HALF = KERNEL_N_FFT // 2   # length of the kernel's complex FFT
 
 
 # ---------------- constants (numpy, host) ----------------
 
 
-@functools.lru_cache(maxsize=None)
-def kernel_basis(win_length: int) -> np.ndarray:
-    """(1024, 1024) windowed DFT basis in the kernel's layout: row n
-    multiplies sample n; tile t holds the re columns of bins
-    [128t, 128t+128) then their im columns."""
-    n_freqs = KERNEL_N_FFT // 2 + 1
-    b = dft_basis(KERNEL_N_FFT, win_length)
-    out = np.empty((KERNEL_N_FFT, 2 * _N_BINS), np.float32)
-    for t in range(_N_BINS // _TILE):
-        bins = slice(t * _TILE, (t + 1) * _TILE)
-        out[:, 2 * t * _TILE: (2 * t + 1) * _TILE] = b[:, bins]
-        out[:, (2 * t + 1) * _TILE: (2 * t + 2) * _TILE] = b[:, n_freqs:][:, bins]
-    return out
+def _cis(angle: np.ndarray) -> np.ndarray:
+    """(n, 2) float32 [cos, sin] of float64 angles."""
+    return np.stack([np.cos(angle), np.sin(angle)], -1).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=None)
 def kernel_consts(cfg: MelConfig) -> Tuple[np.ndarray, ...]:
-    """Nyquist column (1024,), mel basis (n_mels, 513) and each filter's
-    nonzero bin range [lo, hi)."""
-    nyq = dft_basis(KERNEL_N_FFT, cfg.win_length)[:, _N_BINS].copy()
+    """The kernel's tables, computed in float64 and stored as float32, each
+    complex one as (n, 2) [re, im]:
+
+    - the window as (512, 2) pairs (w[2m], w[2m+1]);
+    - the 512-point FFT's twiddles exp(-2πi e/512) in the order its passes
+      read them: pass 2's at 8 (r-1) + t, e = 8 r t (r = 1..7, t = j % 8),
+      then pass 3's at 56 + 64 (r-1) + j, e = r j (j < 64); (512, 2) with
+      the last 8 rows unused;
+    - the post-processing twiddles exp(-2πik/1024), k < 512;
+    - the mel filters' nonzero weights, packed filter after filter and
+      zero-padded to a multiple of 4;
+    - each filter's (lo, hi, first weight, 0): its nonzero bins are
+      [lo, hi), int32 (n_mels, 4)."""
+    win = hann_window(cfg.win_length, KERNEL_N_FFT).reshape(_HALF, 2)
+    r = np.arange(1, 8)[:, None]
+    e = np.concatenate([(8 * r * np.arange(8)).ravel(), (r * np.arange(64)).ravel(),
+                        np.zeros(_HALF - 7 * 72)])
+    twp = _cis(-2 * np.pi * e / _HALF)
+    tw1024 = _cis(-2 * np.pi * np.arange(_HALF) / KERNEL_N_FFT)
     fb = mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
     nz = fb != 0
     lo = np.where(nz.any(1), nz.argmax(1), 0).astype(np.int32)
     hi = np.where(nz.any(1), fb.shape[1] - nz[:, ::-1].argmax(1), 0).astype(np.int32)
-    return nyq, np.ascontiguousarray(fb), lo, hi
+    off = np.concatenate([[0], np.cumsum(hi - lo)])
+    melw = np.zeros(-(-off[-1] // 4) * 4, np.float32)
+    for m in range(cfg.n_mels):
+        melw[off[m]:off[m + 1]] = fb[m, lo[m]:hi[m]]
+    span = np.stack([lo, hi, off[:-1], np.zeros_like(lo)], 1).astype(np.int32)
+    return np.ascontiguousarray(win), twp, tw1024, melw, span
 
 
 @functools.lru_cache(maxsize=None)
 def _device_kernel_consts(cfg: MelConfig, device: torch.device):
-    basis = torch.from_numpy(kernel_basis(cfg.win_length)).to(device)
-    return (basis,) + tuple(torch.from_numpy(c).to(device) for c in kernel_consts(cfg))
+    return tuple(torch.from_numpy(c).to(device) for c in kernel_consts(cfg))
 
 
 # ---------------- host contract ----------------
 
 
-def _prepare(y: torch.Tensor, cfg: MelConfig, center, algorithm: str):
-    if algorithm not in ALGORITHMS:
-        raise ValueError(f"algorithm must be one of {ALGORITHMS}, got {algorithm!r}")
+def _prepare(y: torch.Tensor, cfg: MelConfig, center):
     if y.dim() not in (1, 2):
         raise ValueError(f"expected (T,) or (B, T) input, got {tuple(y.shape)}")
     num_frames = num_frames_for(y.shape[-1], cfg, center)
@@ -123,7 +128,7 @@ def _lib() -> ctypes.CDLL:
     lib = _cuda.load(KERNEL)
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
     lib.fused_stft_forward.argtypes = [p, i64, i64, i64, p, p, p, p, p, p, p,
-                                       i32, i32, i32, f32, f32, p]
+                                       i32, i32, i32, i32, f32, f32, p]
     lib.fused_stft_forward.restype = ctypes.c_int
     lib.fused_stft_error_string.argtypes = [ctypes.c_int]
     lib.fused_stft_error_string.restype = ctypes.c_char_p
@@ -138,7 +143,7 @@ def _launch(yp: torch.Tensor, cfg: MelConfig, num_frames: int, mag_eps: float,
     B, T = yp.shape
     if B > 65535:
         raise ValueError(f"batch {B} exceeds the kernel's grid limit 65535")
-    basis, nyq, fb, lo, hi = _device_kernel_consts(cfg, yp.device)
+    win, twp, tw1024, melw, span = _device_kernel_consts(cfg, yp.device)
     mel = torch.empty((B, cfg.n_mels, num_frames), dtype=torch.float32, device=yp.device)
     lin = (torch.empty((B, cfg.n_freqs, num_frames), dtype=torch.float32, device=yp.device)
            if return_linear else None)
@@ -147,10 +152,11 @@ def _launch(yp: torch.Tensor, cfg: MelConfig, num_frames: int, mag_eps: float,
     lib = _lib()
     with torch.cuda.device(yp.device):
         rc = lib.fused_stft_forward(
-            yp.data_ptr(), B, T, T, basis.data_ptr(), nyq.data_ptr(), fb.data_ptr(),
-            lo.data_ptr(), hi.data_ptr(), mel.data_ptr(),
+            yp.data_ptr(), B, T, T, win.data_ptr(), twp.data_ptr(), tw1024.data_ptr(),
+            melw.data_ptr(), span.data_ptr(), mel.data_ptr(),
             lin.data_ptr() if lin is not None else None,
-            num_frames, cfg.hop_length, cfg.n_mels, float(mag_eps), float(cfg.clip_val),
+            num_frames, cfg.hop_length, cfg.n_mels, melw.numel(), float(mag_eps),
+            float(cfg.clip_val),
             torch.cuda.current_stream(yp.device).cuda_stream)
     if rc != 0:
         msg = lib.fused_stft_error_string(rc).decode()
@@ -166,14 +172,13 @@ def mel_spectrogram_fused(
     center=True,
     mag_eps: float = 0.0,
     return_linear: bool = False,
-    algorithm: str = "split",
 ):
     """Fused log-mel (and optional linear) spectrogram of (T,) or (B, T).
 
     CUDA tensors run the hand-written kernel; CPU tensors run the plain
     version. Returns (..., n_mels, frames) [+ (..., n_freqs, frames)].
     """
-    yp, num_frames = _prepare(y, cfg, center, algorithm)
+    yp, num_frames = _prepare(y, cfg, center)
     if yp.device.type == "cuda":
         mel, lin = _launch(yp, cfg, num_frames, mag_eps, return_linear)
     elif yp.device.type == "cpu":
@@ -190,10 +195,9 @@ def mel_spectrogram_fused_reference(
     center=True,
     mag_eps: float = 0.0,
     return_linear: bool = False,
-    algorithm: str = "split",
 ):
     """The plain torch version of ``mel_spectrogram_fused`` on any device:
     the reference the kernel is held to."""
-    yp, num_frames = _prepare(y, cfg, center, algorithm)
+    yp, num_frames = _prepare(y, cfg, center)
     mel, lin = _plain(yp, cfg, num_frames, mag_eps, return_linear)
     return _finish(y, mel, lin, return_linear)
