@@ -3,10 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``xva_trainer_tpu_torch/csrc``, holds
-each kernel against its plain PyTorch version at the main path's shapes,
-then drives the v3 serving path through the entry points a user calls, at
-the full width of the shipped "big" xVAPitch (weights from a seed). Phases,
-one JSON line each:
+each kernel against its plain PyTorch version at the main paths' shapes,
+then drives the v3 serving path and the v3 training step through the entry
+points a user calls, at the full width of the shipped "big" xVAPitch
+(weights from a seed). Phases, one JSON line each:
 
 1. ``device``: the card, as torch and ``nvidia-smi`` name it;
 2. ``kernels``: every hand-written kernel, built from source;
@@ -22,19 +22,45 @@ one JSON line each:
 4. ``featurize``: ``featurize_batch(mode="linear")`` on that bucket, twice
    (the first call in the process, then warm), held against the CPU, with
    the host/device split of each call's wall time;
-5. ``synthesize``: the model saved as a ``.pt`` and served by ``export_wav``
+5. ``synthesize``: the model saved as a reference-layout ``.pt`` and served
+   by ``export_wav`` (which converts the layout)
    for 3 requests of different texts after a warm-up request, and one more
    request under the profiler;
 6. ``voice_convert``: one featurized clip through ``voice_convert``, twice,
    held against the CPU;
 7. ``model_gpu_vs_cpu``: one short request through the model on the card and
-   on the CPU.
+   on the CPU;
+8. ``mas``: the MAS kernel against its plain version, paths identical, on
+   the trainer's largest bucket (B = 64, 192 tokens x 768 frames, ragged),
+   one token, a square, more tokens than frames, extreme magnitudes, bf16
+   values and more than 1024 tokens; its time at the trainer's bucket beside
+   the plain version's and both bounds;
+9. ``train_gpu_vs_cpu``: one fp32 step (AMP and TF32 off, SGD on both
+   models) of the full-width model and discriminator at B = 2 on the
+   64 x 256 bucket, from the same weights, batch and draws, on the card and
+   on the CPU, and on each again with PyTorch's native convolutions: losses
+   within 1e-3 relative; each card step's updates within the bar of
+   ``update_mismatch`` (1e-3 of each update's max abs, plus float floors) of
+   the nearer CPU step's, times the CPU noise scale: how far the CPU's two
+   convolution implementations miss that bar against each other (a few
+   decoder biases do), measured on the CPU alone. Every parameter past the
+   bar itself is listed;
+10. ``train_amp_vs_fp32``: the same step under bf16 AMP, its loss within 5%
+   of the fp32 step's;
+11. ``train_freeze``: one AdamW step with ``freeze_post_dec`` and one with
+   ``hifi_only``: frozen parameters bit-identical;
+12. ``train_step``: the trainer's step as it runs (AMP, the AdamW pair with
+   its 7-step accumulation, dropout on, draws from a CUDA generator) at
+   B = 64 on the 192 x 768 bucket, or the largest batch that fits: 2 warm-up
+   and 5 timed steps, frames a second, peak memory, the host's share of one
+   profiled step, every loss component, and each kernel's launches a step.
 
-Phases 4-6 are the main path: the launch counts are set to 0 just before it
-and read just after it. Every comparison runs with TF32 off. Then come the
-line of kernels, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
-lines. Needs one CUDA device; imports no JAX.
+Phases 4-6 are the serving path and phase 12's timed steps the training
+path: the launch counts are set to 0 just before each and read just after
+it. Every comparison runs with TF32 off. Then come the line of kernels, the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any
+failure exits non-zero before those lines. Needs one CUDA device; imports no
+JAX.
 """
 from __future__ import annotations
 
@@ -52,6 +78,8 @@ from scipy.io import wavfile
 
 H100_FP32_FLOPS = 67e12      # FP32 outside the tensor cores, H100 SXM data sheet
 H100_HBM_BYTES_S = 3.35e12   # HBM3, H100 SXM data sheet
+H100_BOOST_HZ = 1.98e9       # H100 SXM maximum SM clock
+FP32_OP_CYCLES = 4           # latency of one dependent fp32 add or max
 TOL = 1e-3                   # the repo's mean-L1 parity bar
 SR = 22050
 HOP = 256
@@ -172,7 +200,8 @@ def rfft_reference(y: torch.Tensor, cfg, center, mag_eps: float):
 def profiled(fn):
     """Run ``fn`` once under ``torch.profiler``. Returns its result and the
     wall ms, the device busy ms (the union of kernel intervals), the host
-    share of the wall time and the kernel count. A profiler that does not
+    share of the wall time, the kernel count and the eight kernels that took
+    the most device time ([name, ms, launches]). A profiler that does not
     start is reported, not failed; a failure of ``fn`` fails the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -193,16 +222,22 @@ def profiled(fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         prof.stop()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     if not spans:
         return out, {"wall_ms": wall_ms, "device": "not measured (the trace holds no kernel)"}
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
         busy_us += max(0.0, b - max(a, end))
         end = max(end, b)
+    by_name = {}
+    for e in events:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return out, {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-                 "host_share": 1.0 - busy_us / 1e3 / wall_ms, "kernels": len(spans)}
+                 "host_share": 1.0 - busy_us / 1e3 / wall_ms, "kernels": len(spans),
+                 "top_kernels": [[k[:90], t / 1e3, n] for k, (t, n) in top]}
 
 
 def seeded_model(cfg, seed: int):
@@ -223,6 +258,293 @@ def seeded_model(cfg, seed: int):
     return model
 
 
+WORDS = ("the quick brown fox jumps over a lazy dog while seven bright voices sing of "
+         "rain and quiet rivers under old stone bridges near the harbour at dawn").split()
+
+
+def train_batch(rng: np.random.Generator, n: int, text_len: int, mel_len: int, dev):
+    """A v3 training batch shaped like ``XvaBatcher(device_spec=True)``'s,
+    made by the port's own path: seeded voiced clips of ragged lengths (the
+    first of ``mel_len`` frames), their pitch from ``featurize_batch``
+    (normalised as the feature cache stores it), tokens of seeded English
+    text by ``v3_text_to_ids`` (about one token per 4 frames), padded to the
+    bucket's ``text_len`` tokens and ``mel_len`` frames; int16 audio."""
+    from xva_trainer_tpu_torch.data.text import v3_text_to_ids
+    from xva_trainer_tpu_torch.data.xva_dataset import lang_to_id, normalize_pitch
+    from xva_trainer_tpu_torch.ops.features import featurize_batch
+
+    frames = rng.integers(mel_len // 2, mel_len + 1, n)
+    frames[0] = mel_len
+    waves = [voiced_clip(rng, (f * HOP + 0.5) / SR) for f in frames]
+    feats = featurize_batch(waves, mode="linear", device=dev)
+    to_ids = v3_text_to_ids("en")
+    tokens = np.zeros((n, text_len), np.int64)
+    tlens = np.zeros(n, np.int64)
+    pitch = np.zeros((n, 1, mel_len), np.float32)
+    energy = np.zeros((n, mel_len), np.float32)
+    wav = np.zeros((n, mel_len * HOP, 1), np.int16)
+    for i, (f, w, ft) in enumerate(zip(frames, waves, feats)):
+        words = rng.choice(WORDS, size=max(2, int(f) // 16))
+        ids = to_ids(" ".join(words))[:text_len]
+        tokens[i, :len(ids)], tlens[i] = ids, len(ids)
+        pitch[i, 0, :f] = normalize_pitch(ft["pitch"])
+        energy[i, :f] = ft["energy"]
+        wav[i, :len(w), 0] = np.round(np.clip(w, -1, 1) * 32767.0).astype(np.int16)
+    dvec = rng.standard_normal((n, 512)).astype(np.float32)
+    dvec /= np.linalg.norm(dvec, axis=1, keepdims=True)
+    batch = {"tokens": tokens, "tlens": tlens, "slens": frames.astype(np.int64),
+             "pitch": pitch, "energy": energy, "wav": wav, "dvec": dvec,
+             "lang": np.full(n, lang_to_id("en"), np.int64)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def seeded_disc(seed: int):
+    from xva_trainer_tpu_torch.models.xvapitch import VitsDiscriminator
+
+    torch.manual_seed(seed)
+    return VitsDiscriminator()
+
+
+def step_draws(batch, cfg, generator: torch.Generator, dev):
+    """The step's posterior noise, SDP noise and segment draw, from a CPU
+    generator, on ``dev``: the same draws on every device."""
+    B, T_text = batch["tokens"].shape
+    T_spec = batch["pitch"].shape[-1]
+    return {"noise": torch.randn((B, cfg.latent_size, T_spec), generator=generator).to(dev),
+            "dp_noise": torch.randn((B, 2, T_text), generator=generator).to(dev),
+            "seg_u": torch.rand((B,), generator=generator).to(dev)}
+
+
+class Sgd:
+    """Plain SGD in the port's optimiser interface: the update is -lr times
+    the gradient, so a step's updates compare its gradients."""
+
+    def __init__(self, params, lr: float = 1e-3):
+        self.params, self.lr = list(params), lr
+
+    @torch.no_grad()
+    def step(self, grads, apply_mask=None):
+        for i, (p, g) in enumerate(zip(self.params, grads)):
+            if g is not None and (apply_mask is None or apply_mask[i]):
+                p.add_(g, alpha=-self.lr)
+        return True
+
+
+def state_of(*modules):
+    return [{k: v.detach().float().cpu().clone() for k, v in m.state_dict().items()}
+            for m in modules]
+
+
+def update_mismatch(old, new_refs, new, scale: float = 1.0):
+    """The worst parameters, by the ratio of the distance from ``new``'s
+    update to the nearest of the ``new_refs``' updates (max abs) to the bar:
+    1e-3 of the first reference update's max abs, plus 1e-6 of the largest
+    first reference update (the float noise of a gradient that is zero in
+    exact arithmetic, as an attention key's bias has) and 2 ulp of the
+    parameter's largest value (the finest difference new - old resolves in
+    fp32), all times ``scale``. Returns the five worst as [ratio, key, err,
+    max |reference update|], and every parameter whose ratio exceeds 1."""
+    refs = [{k: r[k] - old[k] for k in old} for r in new_refs]
+    floor = 1e-6 * max(float(r.abs().max()) for r in refs[0].values())
+    ulp2 = 2 * float(np.finfo(np.float32).eps)
+    rows = []
+    for k, r in refs[0].items():
+        tol = scale * (1e-3 * float(r.abs().max()) + floor + ulp2 * float(old[k].abs().max()))
+        err = min(float((new[k] - old[k] - ref[k]).abs().max()) for ref in refs)
+        rows.append([err / tol if tol else (0.0 if err == 0 else float("inf")), k, err,
+                     float(r.abs().max())])
+    rows.sort(reverse=True)
+    return rows[:5], [row for row in rows if row[0] > 1.0]
+
+
+def mas_case(name: str, dev, seed: int = 0):
+    """(value, mask) of one MAS case: the trainer's largest bucket with
+    ragged lengths, one token, a square, more tokens than frames, extreme
+    magnitudes (3e6·N(0,1) - 2e6 over 900 frames), bf16 values, and more
+    than 1024 tokens (the kernel's loop over chunks of text positions, and
+    shared memory above 48 KB). The same cases as
+    tests/test_torch_kernels_cuda.py."""
+    rng = np.random.default_rng(seed)
+    B, tx, ty = {"trainer": (64, 192, 768), "one_token": (4, 1, 50), "square": (3, 64, 64),
+                 "more_tokens": (3, 40, 20), "extreme": (2, 12, 900), "bf16": (64, 192, 768),
+                 "long_text": (2, 1100, 1500)}[name]
+    value = rng.standard_normal((B, tx, ty))
+    if name == "extreme":
+        value = value * 3e6 - 2e6
+    x_len = rng.integers(max(1, tx // 8), tx + 1, B)
+    y_len = rng.integers(max(1, ty // 4), ty + 1, B)
+    x_len[0], y_len[0] = tx, ty
+    if name == "more_tokens":
+        x_len = np.maximum(x_len, y_len + 1).clip(max=tx)
+    mask = ((np.arange(tx)[None, :, None] < x_len[:, None, None])
+            & (np.arange(ty)[None, None, :] < y_len[:, None, None]))
+    dtype = torch.bfloat16 if name == "bf16" else torch.float32
+    return (torch.from_numpy(value.astype(np.float32)).to(dev, dtype),
+            torch.from_numpy(mask.astype(np.float32)).to(dev))
+
+
+def train_phases(cfg, dev):
+    """Phases 9-12: the training step at full width. Returns the launch
+    counts of the timed steps (the training path) and the phase's record."""
+    from xva_trainer_tpu_torch.ops import _cuda
+    from xva_trainer_tpu_torch.train.optim import GanOptimizer
+    from xva_trainer_tpu_torch.train.xvapitch_trainer import (POST_DEC, XvaTrainConfig,
+                                                              make_optimizers, make_v3_step)
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(7)
+    small = train_batch(rng, 2, 64, 256, dev)  # the smallest bucket, B = 2
+    draws = step_draws(small, cfg, torch.Generator().manual_seed(8), dev)
+    # the same seeded weights twice, in eval mode (dropout off)
+    g_cpu, d_cpu = seeded_model(cfg, 10), seeded_disc(11).eval()
+    g_gpu, d_gpu = seeded_model(cfg, 10).to(dev), seeded_disc(11).eval().to(dev)
+    old = state_of(g_cpu, d_cpu)
+    n_g, n_d = (sum(p.numel() for p in m.parameters()) for m in (g_cpu, d_cpu))
+
+    # ---- 9. one fp32 step on the card and on the CPU; and on each again with
+    # its other convolution implementation (cuDNN off on the card, oneDNN off
+    # on the CPU) ----
+    metas, news, secs = {}, {}, {}
+    for name, dv in (("gpu", dev), ("gpu_native_conv", dev), ("cpu", cpu),
+                     ("cpu_native_conv", cpu)):
+        native = name.endswith("native_conv")
+        g, d = (g_gpu, d_gpu) if name == "gpu" else (g_cpu, d_cpu) if name == "cpu" else \
+            (seeded_model(cfg, 10).to(dv), seeded_disc(11).eval().to(dv))
+        torch.backends.cudnn.enabled = not (native and dv.type == "cuda")
+        torch.backends.mkldnn.enabled = not (native and dv.type == "cpu")
+        step = make_v3_step(g, d, Sgd(g.parameters()), Sgd(d.parameters()),
+                            freeze_post_dec=False, use_amp=False)
+        t0 = time.perf_counter()
+        meta = step({k: v.to(dv) for k, v in small.items()},
+                    **{k: v.to(dv) for k, v in draws.items()})
+        if dv.type == "cuda":
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        metas[name] = {k: v.float().cpu() for k, v in meta.items()}
+        news[name] = state_of(g, d)
+    torch.backends.cudnn.enabled = torch.backends.mkldnn.enabled = True
+    loss_rel = {k: float((metas["gpu"][k] - metas["cpu"][k]).abs().max()
+                         / max(float(metas["cpu"][k].abs().max()), 1e-30))
+                for k in metas["cpu"]}
+    # The bar of 1e-3 of each update's max abs is finer than the float noise
+    # of the worst-conditioned sums (a bias gradient summed over B·T samples
+    # that cancel): the CPU's two convolution implementations already miss it
+    # against each other. The noise scale is that miss, measured on the CPU
+    # alone, so that nothing the card computes can widen its own bar; each
+    # card run is held to the nearer of the two CPU updates at that scale.
+    cpu_vs_cpu = [update_mismatch(o, [r], n) for o, r, n in
+                  zip(old, news["cpu"], news["cpu_native_conv"])]
+    scale = max([1.0] + [w[0][0] for w, _ in cpu_vs_cpu])
+    held, over_bar = {}, {}
+    for run in ("gpu", "gpu_native_conv"):
+        held[run] = [update_mismatch(o, [r, r2], n, scale) for o, r, r2, n in
+                     zip(old, news["cpu"], news["cpu_native_conv"], news[run])]
+        # every parameter past the bar itself, against the oneDNN CPU step
+        over_bar[run] = [update_mismatch(o, [r], n)[1] for o, r, n in
+                         zip(old, news["cpu"], news[run])]
+    pair = lambda rows: {"generator": rows[0], "discriminator": rows[1]}  # noqa: E731
+    emit("train_gpu_vs_cpu", bucket=[2, 64, 256], params={"generator": n_g, "discriminator": n_d},
+         losses={k: float(v.sum()) for k, v in metas["cpu"].items() if v.dim() == 0},
+         loss_rel_err=loss_rel, max_loss_rel_err=max(loss_rel.values()),
+         cpu_noise_scale=scale,
+         cpu_onednn_vs_native=pair([w for w, _ in cpu_vs_cpu]),
+         update_mismatch_at_scale={run: pair([w for w, _ in rows]) for run, rows in held.items()},
+         over_bar_vs_cpu={run: pair(rows) for run, rows in over_bar.items()},
+         seconds=secs, optimizer="SGD lr 1e-3", amp=False, tf32=False)
+    worst = max(w[0][0] for rows in held.values() for w, _ in rows)
+    check(max(loss_rel.values()) < 1e-3 and worst <= 1.0,
+          f"train_gpu_vs_cpu: loss rel err {max(loss_rel.values())}, worst update ratio {worst} "
+          f"at the CPU noise scale {scale}")
+
+    # ---- 10. AMP against fp32, from the same state ----
+    g_gpu.load_state_dict(old[0])
+    d_gpu.load_state_dict(old[1])
+    step = make_v3_step(g_gpu, d_gpu, Sgd(g_gpu.parameters()), Sgd(d_gpu.parameters()),
+                        freeze_post_dec=False, use_amp=True)
+    amp_meta = {k: float(v.float().sum()) for k, v in step(small, **draws).items()}
+    fp32_loss = float(metas["gpu"]["loss"])
+    amp_rel = abs(amp_meta["loss"] - fp32_loss) / abs(fp32_loss)
+    emit("train_amp_vs_fp32", fp32_loss=fp32_loss, amp_loss=amp_meta["loss"], rel=amp_rel,
+         amp_losses=amp_meta)
+    check(np.isfinite(amp_meta["loss"]) and amp_rel < 0.05
+          and all(p.dtype == torch.float32 for p in g_gpu.parameters()),
+          f"train_amp_vs_fp32: AMP loss {amp_meta['loss']} vs fp32 {fp32_loss}")
+
+    # ---- 11. the freezes, with the AdamW pair ----
+    freeze = {}
+    for name, kw in (("freeze_post_dec", {"freeze_post_dec": True}),
+                     ("hifi_only", {"freeze_post_dec": False, "hifi_only": True})):
+        g_gpu.load_state_dict(old[0])
+        d_gpu.load_state_dict(old[1])
+        step = make_v3_step(g_gpu, d_gpu, GanOptimizer(g_gpu.parameters(), 1.75e-4),
+                            GanOptimizer(d_gpu.parameters(), 2e-4), use_amp=True, **kw)
+        meta = step(small, **draws)
+        new = state_of(g_gpu)[0]
+        moved = {k.split(".")[0] for k in new if not torch.equal(new[k], old[0][k])}
+        still = {k.split(".")[0] for k in new if torch.equal(new[k], old[0][k])}
+        freeze[name] = {"moved": sorted(moved), "unchanged": sorted(still),
+                        "loss": float(meta["loss"]), "loss_disc": float(meta["loss_disc"])}
+        frozen_ok = (not moved & set(POST_DEC)) if name == "freeze_post_dec" \
+            else moved == set(POST_DEC)
+        check(frozen_ok and bool(torch.isfinite(meta["loss"])),
+              f"train_freeze {name}: moved {sorted(moved)}")
+    emit("train_freeze", **freeze)
+    del g_cpu, d_cpu, step
+
+    # ---- 12. the trainer's step, timed: the training path ----
+    tcfg = XvaTrainConfig()
+    batch_size, fits, tried = tcfg.batch_size, None, []
+    while fits is None:
+        g_gpu.load_state_dict(old[0])
+        d_gpu.load_state_dict(old[1])
+        g_gpu.train()
+        d_gpu.train()
+        g_opt, d_opt = make_optimizers(g_gpu, d_gpu, tcfg)
+        step = make_v3_step(g_gpu, d_gpu, g_opt, d_opt, freeze_post_dec=False,
+                            use_amp=tcfg.use_amp)
+        gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
+        big = train_batch(np.random.default_rng(9), batch_size, 192, 768, dev)
+        try:
+            for _ in range(2):  # warm-up
+                step(big, gen)
+            torch.cuda.synchronize()
+            fits = batch_size
+        except torch.cuda.OutOfMemoryError as e:  # say so, and halve the batch
+            tried.append({"batch": batch_size, "error": str(e).splitlines()[0]})
+            del big, step, g_opt, d_opt
+            torch.cuda.empty_cache()
+            check(batch_size > 1, "train_step: not even B = 1 fits")
+            batch_size //= 2
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    times, metas = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        meta = step(big, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metas.append({k: v.float().cpu().tolist() for k, v in meta.items()})
+    launches = dict(_cuda.LAUNCHES)  # the end of the training path
+    peak = torch.cuda.max_memory_allocated()
+    _, prof = profiled(lambda: step(big, gen))
+    frames = int(big["slens"].sum())
+    med = float(np.median(times))
+    finite = all(np.isfinite(np.asarray(v, np.float64)).all() for m in metas for v in m.values())
+    record = {"batch": fits, "bucket": [192, 768], "b64_fits": fits == tcfg.batch_size,
+              "tried": tried, "timed_steps": len(times), "step_ms": [t * 1e3 for t in times],
+              "step_ms_median": med * 1e3, "step_ms_min": min(times) * 1e3,
+              "step_ms_max": max(times) * 1e3, "mel_frames": frames,
+              "mel_frames_per_s": frames / med, "peak_memory_gb": peak / 1e9,
+              "gam": tcfg.gam, "optimizer_updates_in_timed_steps": g_opt.count,
+              "launches": launches, "launches_per_step": {k: v / len(times)
+                                                          for k, v in launches.items()},
+              "profiled_step": prof, "losses": metas[-1], "all_losses_finite": finite,
+              "amp": tcfg.use_amp, "tf32": False, "dropout": "on (training mode)"}
+    emit("train_step", **record)
+    check(finite, "train_step: a loss component is not finite")
+    return launches, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -230,9 +552,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from xva_trainer_tpu_torch.interop.convert import ups_to_reference
     from xva_trainer_tpu_torch.models.xvapitch import XVAPitchConfig
     from xva_trainer_tpu_torch.ops import _cuda
     from xva_trainer_tpu_torch.ops import fused_stft as fs
+    from xva_trainer_tpu_torch.ops import mas
     from xva_trainer_tpu_torch.ops.features import featurize_batch
     from xva_trainer_tpu_torch.ops.stft import DEFAULT_MEL, mel_basis
     from xva_trainer_tpu_torch.serve import (export_wav, load_xvapitch, synthesize_v3,
@@ -355,6 +679,48 @@ def main() -> int:
          bound_by=bound_by, kernel_gflop=kernel_flops / 1e9,
          kernel_ops_ms=kernel_flops / H100_FP32_FLOPS * 1e3, gpu=smi)
 
+    # ---- 8. mas: the kernel against its plain version, paths identical ----
+    mas_cases, mas_mismatch = [], 0
+    for name in ("trainer", "one_token", "square", "more_tokens", "extreme", "bf16",
+                 "long_text"):
+        value, mask = mas_case(name, dev)
+        path = mas.maximum_path(value, mask)
+        ref = mas.maximum_path_reference(value, mask)
+        torch.cuda.synchronize()
+        bad = int((path != ref).sum())
+        _, y_len = mas.mask_lengths(mask)
+        frames_on_path = bool(torch.equal(path.float().sum(dim=(1, 2)).long(), y_len.long()))
+        mas_mismatch += bad
+        mas_cases.append({"case": name, "shape": list(value.shape), "dtype": str(value.dtype),
+                          "mismatches": bad, "every_frame_on_path": frames_on_path})
+        check(bad == 0 and frames_on_path and path.dtype == value.dtype,
+              f"mas {name}: {bad} path entries differ from the plain version")
+    value, mask = mas_case("trainer", dev)
+    mB, mtx, mty = value.shape
+    # bytes: the value and the mask read once, the path written once; the
+    # chain: t_y dependent steps of an add and a max each
+    mas_bytes = mB * mtx * mty * (value.element_size() + mask.element_size()
+                                  + value.element_size())
+    mas_bytes_ms = mas_bytes / H100_HBM_BYTES_S * 1e3
+    mas_chain_ms = mty * 2 * FP32_OP_CYCLES / H100_BOOST_HZ * 1e3
+    mas_t = {"ms": [], "device_ms": [], "plain_ms": []}
+    kernel_call = functools.partial(mas.maximum_path, value, mask)
+    plain_call = functools.partial(mas.maximum_path_reference, value, mask)
+    for order in ((kernel_call, plain_call), (plain_call, kernel_call)):
+        for fn in order:
+            if fn is kernel_call:
+                mas_t["ms"].append(cuda_ms(fn, flush=flush))
+                mas_t["device_ms"].append(device_ms(fn, flush))
+            else:  # some 10 000 small launches a call: a few calls suffice
+                mas_t["plain_ms"].append(cuda_ms(fn, iters=3, flush=flush))
+    mas_timing = {k: sum(v) / len(v) for k, v in mas_t.items()}
+    emit("mas", cases=mas_cases, mismatches=mas_mismatch, trainer_shape=[mB, mtx, mty],
+         timing=mas_timing, runs=mas_t, mbytes=mas_bytes / 1e6, bytes_bound_ms=mas_bytes_ms,
+         chain_bound_ms=mas_chain_ms, bound_ms=max(mas_bytes_ms, mas_chain_ms),
+         bound_by="bytes" if mas_bytes_ms >= mas_chain_ms else "operations",
+         bound_share_of_device_ms=max(mas_bytes_ms, mas_chain_ms) / mas_timing["device_ms"],
+         library="none: no PyTorch call computes MAS", gpu=smi)
+
     # ---- the main path: 4. featurize → 5. synthesize → 6. voice_convert ----
     _cuda.reset_launch_counts()
     # the first call in the process, then the same call again
@@ -384,8 +750,14 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     ckpt = os.path.join(work, "voice.pt")
-    # the xVASynth export format: a flat reference-named fp16 state dict
-    torch.save({k: v.half() for k, v in seeded_model(cfg_m, 0).state_dict().items()}, ckpt)
+    # the xVASynth export format: a flat reference-named fp16 state dict, with
+    # the decoder's ``ups`` weight-normed per input channel as the reference
+    # trainer writes them (``load_xvapitch`` converts them back)
+    ref_sd = ups_to_reference(seeded_model(cfg_m, 0).state_dict())
+    ups_g = [v.shape for k, v in ref_sd.items() if ".ups." in k and k.endswith("weight_g")]
+    check(bool(ups_g) and all(s[1] == 1 and s[0] > 1 for s in ups_g),
+          f"synthesize: the checkpoint's ups weight_g are not in the reference layout: {ups_g}")
+    torch.save({k: v.half() for k, v in ref_sd.items()}, ckpt)
     emb = np.random.default_rng(2).standard_normal(512).astype(np.float32)
     emb /= np.linalg.norm(emb)
     t0 = time.perf_counter()
@@ -459,19 +831,41 @@ def main() -> int:
           f"model_gpu_vs_cpu: durations equal {same_durations}, max abs diff {diff}, "
           f"mean abs diff {mean_diff}, CPU mean |wav| {ref_mean}")
     shutil.rmtree(work, ignore_errors=True)
+    del model, model_cpu
+
+    train_launches, train = train_phases(cfg_m, dev)
+    by_path = {"serve": launches, "train": train_launches}
 
     kernels = [{
         "name": "fused_stft", "route": "cuda",
         "source": "xva_trainer_tpu_torch/csrc/fused_stft.cu",
         "replaces": "xva_trainer_tpu/ops/pallas_stft.py:127",
-        "launches": launches["fused_stft"], "max_abs_err": max_err, "ms": tb["ms"],
+        "launches": train_launches["fused_stft"], "max_abs_err": max_err, "ms": tb["ms"],
         "plain_ms": tb["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": tb["library_ms"], "device_ms": tb["device_ms"],
         "plain_device_ms": tb["plain_device_ms"], "library_device_ms": tb["library_device_ms"],
+        "launches_by_path": {p: c["fused_stft"] for p, c in by_path.items()},
+        "launches_per_train_step": train_launches["fused_stft"] / train["timed_steps"],
+    }, {
+        "name": "mas", "route": "cuda", "source": "xva_trainer_tpu_torch/csrc/mas.cu",
+        "replaces": "xva_trainer_tpu/ops/mas.py:30",  # lax.scan code, not Pallas
+        "launches": train_launches["mas"], "max_abs_err": 0.0, "path_mismatches": mas_mismatch,
+        "ms": mas_timing["ms"], "plain_ms": mas_timing["plain_ms"],
+        "bound_ms": max(mas_bytes_ms, mas_chain_ms),
+        "bound_by": "bytes" if mas_bytes_ms >= mas_chain_ms else "operations",
+        "library_ms": None, "device_ms": mas_timing["device_ms"],
+        "bytes_bound_ms": mas_bytes_ms, "chain_bound_ms": mas_chain_ms,
+        "launches_by_path": {p: c["mas"] for p, c in by_path.items()},
+        "launches_per_train_step": train_launches["mas"] / train["timed_steps"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
-    missing = [k["name"] for k in kernels if k["launches"] < 1]
-    check(not missing, f"the main path launched no {missing}")
+    # each path's kernels: fused_stft on both, mas on the training step, every step
+    missing = [p + ":" + k for p, ks in (("serve", ["fused_stft"]),
+                                         ("train", ["fused_stft", "mas"]))
+               for k in ks if by_path[p][k] < 1]
+    check(not missing, f"a main path launched no {missing}")
+    check(all(train_launches[k] >= train["timed_steps"] for k in ("fused_stft", "mas")),
+          f"not every training step launched both kernels: {train_launches}")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Port parity: HiFi-GAN MRF residual blocks against the JAX package, with
-weights carried across by the port's weight-norm export rules. Tolerance:
-1e-3 mean L1 (and relative to the output's scale)."""
+weights carried across by the port's weight-norm rules (flax's scale and
+kernel as weight_g and weight_v). Tolerance: 1e-3 mean L1 (and relative to
+the output's scale)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,7 +10,7 @@ import torch
 
 from xva_trainer_tpu.models.hifigan.models import ResBlock1 as JaxResBlock1
 from xva_trainer_tpu.models.hifigan.models import ResBlock2 as JaxResBlock2
-from xva_trainer_tpu_torch.interop.mapping import apply_export
+from xva_trainer_tpu_torch.interop.mapping import apply_carry
 from xva_trainer_tpu_torch.interop.xvapitch_map import _wn_conv
 from xva_trainer_tpu_torch.models.hifigan import ResBlock1, ResBlock2
 
@@ -39,7 +40,7 @@ def test_resblock_matches_jax(block, kernel, dilations):
     ref = np.asarray(jm.apply(params, jnp.asarray(x)))
 
     port = tcls(C, kernel, dilations)
-    sd = apply_export(params, _rules(block, len(dilations)), dtype=np.float32)
+    sd = apply_carry(params, _rules(block, len(dilations)))
     port.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
     with torch.no_grad():
         ours = port(torch.from_numpy(x.transpose(0, 2, 1))).numpy().transpose(0, 2, 1)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+the fused STFT kernel within 1e-3, the MAS kernel with identical paths.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skips elsewhere. Run on the card
 (``--noconftest``: tests/conftest.py imports JAX, which the card's machine
@@ -14,6 +15,7 @@ import torch
 
 from xva_trainer_tpu_torch.ops import _cuda
 from xva_trainer_tpu_torch.ops import fused_stft as fs
+from xva_trainer_tpu_torch.ops import mas
 from xva_trainer_tpu_torch.ops.stft import MelConfig
 
 pytestmark = pytest.mark.cuda
@@ -128,3 +130,59 @@ def test_kernel_rejects_other_n_fft(cuda):
     y = _bucket(cuda, B=1, T=8192)
     with pytest.raises(ValueError, match="n_fft"):
         fs.mel_spectrogram_fused(y, MelConfig(n_fft=512, win_length=512, hop_length=128))
+
+
+# ---------------- MAS ----------------
+
+
+def mas_case(name, device, seed=0):
+    """(value, mask) of one MAS case: the trainer's largest bucket with
+    ragged lengths, one token, a square, more tokens than frames, extreme
+    magnitudes over 900 frames, bf16 values, and more than 1024 tokens (the
+    kernel's loop over chunks of text positions, and shared memory above
+    48 KB)."""
+    rng = np.random.default_rng(seed)
+    B, tx, ty = {"trainer": (64, 192, 768), "one_token": (4, 1, 50), "square": (3, 64, 64),
+                 "more_tokens": (3, 40, 20), "extreme": (2, 12, 900), "bf16": (64, 192, 768),
+                 "long_text": (2, 1100, 1500)}[name]
+    value = rng.standard_normal((B, tx, ty))
+    if name == "extreme":
+        value = value * 3e6 - 2e6
+    x_len = rng.integers(max(1, tx // 8), tx + 1, B)
+    y_len = rng.integers(max(1, ty // 4), ty + 1, B)
+    x_len[0], y_len[0] = tx, ty
+    if name == "more_tokens":
+        x_len = np.maximum(x_len, y_len + 1).clip(max=tx)
+    mask = (np.arange(tx)[None, :, None] < x_len[:, None, None]) & \
+        (np.arange(ty)[None, None, :] < y_len[:, None, None])
+    dtype = torch.bfloat16 if name == "bf16" else torch.float32
+    return (torch.from_numpy(value.astype(np.float32)).to(device, dtype),
+            torch.from_numpy(mask.astype(np.float32)).to(device))
+
+
+@pytest.mark.parametrize("name", ["trainer", "one_token", "square", "more_tokens", "extreme",
+                                  "bf16", "long_text"])
+def test_mas_kernel_paths_equal_plain(cuda, name):
+    value, mask = mas_case(name, cuda)
+    before = _cuda.LAUNCHES["mas"]
+    path = mas.maximum_path(value, mask)
+    ref = mas.maximum_path_reference(value, mask)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["mas"] == before + 1
+    assert path.dtype == value.dtype and path.shape == value.shape and path.is_cuda
+    assert torch.equal(path, ref), int((path != ref).sum())
+    # one text position per valid frame: every frame of each item is on the path
+    _, y_len = mas.mask_lengths(mask)
+    assert torch.equal(path.float().sum(dim=(1, 2)).long(), y_len.long())
+
+
+def test_mas_kernel_empty_batch_and_bad_input(cuda):
+    value, mask = mas_case("square", cuda)
+    before = _cuda.LAUNCHES["mas"]
+    assert mas.maximum_path(value[:0], mask[:0]).shape == (0, 64, 64)
+    assert _cuda.LAUNCHES["mas"] == before
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mas.maximum_path(value.half(), mask)
+    with pytest.raises(ValueError, match="shared"):
+        mas.maximum_path(torch.zeros((1, 4096, 4096), device=cuda),
+                         torch.ones((1, 4096, 4096), device=cuda))

@@ -29,7 +29,9 @@ from xva_trainer_tpu_torch.data.text import v3_text_to_ids
 from xva_trainer_tpu_torch.data.text.ipa import ipa_to_xvaarpabet
 from xva_trainer_tpu_torch.data.text.xva_processor import XvaTextProcessor, register_ipa_g2p
 from xva_trainer_tpu_torch.data.xva_dataset import LANG_CODES, lang_to_id
-from xva_trainer_tpu_torch.models.xvapitch import XVAPitchConfig
+from xva_trainer_tpu_torch.interop.convert import ups_to_reference
+from xva_trainer_tpu_torch.models.conv import weight_norm
+from xva_trainer_tpu_torch.models.xvapitch import XVAPitch, XVAPitchConfig
 from xva_trainer_tpu_torch.ops import loudness
 
 TEXTS = [
@@ -145,13 +147,54 @@ def test_export_wav_cpu(voice, tmp_path):
     assert np.array_equal(serve.synthesize_v3(model, body["text"], emb, "en"), wav)
 
 
+def _ups_weights(sd, dim):
+    """The effective weights of the decoder's upsampling convs, whose weight
+    norm runs over ``dim``."""
+    return [torch._weight_norm(sd[f"waveform_decoder.ups.{i}.weight_v"].float(),
+                               sd[f"waveform_decoder.ups.{i}.weight_g"].float(), dim)
+            for i in range(len(TCFG.upsample_rates))]
+
+
 def test_loaded_weights_are_the_export(voice):
+    """The model holds the exported weights: every entry as written, except
+    the decoder's upsampling (weight_g, weight_v) pairs, which move from the
+    reference's per-input-channel weight norm to the port's per-output-channel
+    one with the same effective weights; ``ups_to_reference`` gives the
+    reference's layout back."""
     path, _ = voice
     sd = torch.load(path, weights_only=True)
     model = serve.load_xvapitch(path, TCFG, device="cpu")
     own = model.state_dict()
     assert set(own) == set(sd)
-    assert all(torch.equal(own[k], v.float()) for k, v in sd.items())
+    ups = {k for k in sd if k.startswith("waveform_decoder.ups.") and ".weight_" in k}
+    assert len(ups) == 2 * len(TCFG.upsample_rates)
+    assert all(torch.equal(own[k], v.float()) for k, v in sd.items() if k not in ups)
+    back = ups_to_reference(own)
+    for k in ups:
+        assert back[k].shape == sd[k].shape
+        if k.endswith("weight_g"):
+            assert own[k].shape[0] == 1 and sd[k].shape[1] == 1
+    for ref, ours, rt in zip(_ups_weights(sd, 0), _ups_weights(own, 1), _ups_weights(back, 0)):
+        scale = ref.abs().max()
+        assert (ours - ref).abs().max() < 1e-6 * scale and (rt - ref).abs().max() < 1e-6 * scale
+
+
+def test_reference_checkpoint_synthesises_as_before(voice):
+    """The reference-layout ``.pt`` loads strictly and synthesises the
+    waveform of a model that keeps the reference's per-input-channel weight
+    norm on its upsampling convs."""
+    path, emb = voice
+    sd = {k: v.float() for k, v in torch.load(path, weights_only=True).items()}
+    before = XVAPitch(TCFG)
+    for up in before.waveform_decoder.ups:
+        torch.nn.utils.remove_weight_norm(up)
+        weight_norm(up, dim=0)
+    before.load_state_dict(sd, strict=True)
+    text = "The quick brown fox."
+    ref = serve.synthesize_v3(before.eval(), text, emb, "en")
+    ours = serve.synthesize_v3(serve.load_xvapitch(path, TCFG, device="cpu"), text, emb, "en")
+    assert ours.shape == ref.shape and len(ref) > 0
+    assert np.abs(ours - ref).max() < 1e-5 * max(np.abs(ref).max(), 1e-3)
 
 
 def test_voice_convert_cpu(voice):

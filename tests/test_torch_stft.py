@@ -224,7 +224,7 @@ def test_cpu_wrapper_counts_no_launch():
     y = torch.from_numpy(_audio(T=4096))
     fs.mel_spectrogram_fused(y, return_linear=True)
     fs.mel_spectrogram_fused_reference(y)
-    assert _cuda.LAUNCHES == {"fused_stft": 0}
+    assert _cuda.LAUNCHES == {"fused_stft": 0, "mas": 0}
 
 
 def test_wrapper_has_no_fallback_for_other_devices():

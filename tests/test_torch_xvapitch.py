@@ -17,6 +17,7 @@ import torch
 from test_xvapitch import TINY as JAX_TINY
 
 from xva_trainer_tpu.models.xvapitch import XVAPitch as JaxXVAPitch
+from xva_trainer_tpu.models.xvapitch.modules import ReversalClassifier as JaxReversalClassifier
 from xva_trainer_tpu.ops.spline import rational_quadratic_spline as jax_spline
 from xva_trainer_tpu_torch.interop.convert import xvapitch_state_dict
 from xva_trainer_tpu_torch.interop.xvapitch_map import rules_for_config
@@ -172,8 +173,21 @@ def test_state_dict_covers_every_key(cfg):
 
 
 def test_reversal_classifier_is_refused():
-    with pytest.raises(NotImplementedError, match="mltts_rc"):
-        XVAPitch(dataclasses.replace(TCFG, mltts_rc=True))
+    """``mltts_rc`` is not refused: the model builds its language classifier,
+    whose weights carry over from the JAX package and whose logits match
+    JAX's on the same frames."""
+    cfg = dataclasses.replace(JCFG, mltts_rc=True)
+    tcfg = XVAPitchConfig(**dataclasses.asdict(cfg))
+    params = jax.device_get(jax.jit(JaxXVAPitch(cfg).init)(RNGS, *_init_args())["params"])
+    port = XVAPitch(tcfg).eval()
+    port.load_state_dict(xvapitch_state_dict({"params": params}, tcfg), strict=True)
+    frames = np.random.default_rng(8).standard_normal((2, 9, LATENT)).astype(np.float32)
+    ref = JaxReversalClassifier(LATENT, LATENT, tcfg.num_languages).apply(
+        {"params": params["reversal_classifier"]}, frames)
+    with torch.no_grad():
+        ours = port.reversal_classifier(_t(frames))
+    assert ours.shape == (2, 9, tcfg.num_languages)
+    assert np.abs(ours.numpy() - _np(ref)).max() < 1e-5
 
 
 # ---------------- submodules ----------------

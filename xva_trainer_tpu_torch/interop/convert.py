@@ -1,14 +1,23 @@
-"""Carry the JAX package's xVAPitch parameters across to the port."""
+"""Carry the JAX package's xVAPitch parameters across to the port, and move
+the decoder's upsampling weight norm between the reference's layout and the
+port's."""
 from __future__ import annotations
 
+import re
 from collections import OrderedDict
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from .mapping import apply_export
-from .xvapitch_map import rules_for_config, unused_torch_defaults
+from .mapping import apply_carry
+from .xvapitch_map import rules_for_config, unused_torch_defaults, vits_disc_rules
+
+_UPS_G = re.compile(r"(^|\.)ups\.\d+\.weight_g$")
+
+
+def _tensors(sd: Dict[str, np.ndarray]) -> "OrderedDict[str, torch.Tensor]":
+    return OrderedDict((k, torch.from_numpy(v)) for k, v in sd.items())
 
 
 def xvapitch_state_dict(jax_params_as_numpy: Dict, cfg) -> Dict[str, torch.Tensor]:
@@ -16,11 +25,64 @@ def xvapitch_state_dict(jax_params_as_numpy: Dict, cfg) -> Dict[str, torch.Tenso
     without the top-level ``"params"`` key) → the fp32 state dict that loads
     the port's ``XVAPitch(cfg)`` with ``strict=True``.
 
-    ``apply_export`` defaults to fp16, the xVASynth export type; the port is
-    compared in fp32. The reference's unused last ``norm_layers_2`` of the
-    pitch transformer is emitted at its initial value, as the JAX export does.
+    Weight norm is carried as flax holds it (``weight_v`` the kernel,
+    ``weight_g`` the scale), so that a training step moves the port's
+    parameters as it moves the JAX package's. The reference's unused last
+    ``norm_layers_2`` of the pitch transformer is emitted at its initial
+    value, as the JAX export does.
     """
-    sd = apply_export(jax_params_as_numpy, rules_for_config(cfg), dtype=np.float32)
+    sd = apply_carry(jax_params_as_numpy, rules_for_config(cfg))
     for k, (kind, shape) in unused_torch_defaults(cfg.pitch_layers).items():
         sd[k] = (np.ones if kind == "ones" else np.zeros)(shape, np.float32)
-    return OrderedDict((k, torch.from_numpy(np.ascontiguousarray(v))) for k, v in sd.items())
+    return _tensors(sd)
+
+
+def vits_disc_state_dict(jax_params_as_numpy: Dict) -> Dict[str, torch.Tensor]:
+    """JAX VitsDiscriminator parameters → the fp32 state dict of the port's
+    ``VitsDiscriminator``, weight norm carried as in ``xvapitch_state_dict``."""
+    return _tensors(apply_carry(jax_params_as_numpy, vits_disc_rules(tp="")))
+
+
+def train_state_dicts(g_params: Dict, d_params: Dict, cfg) -> Tuple[Dict, Dict]:
+    """The JAX trainer's generator and discriminator params (numpy) → the
+    port's (XVAPitch, VitsDiscriminator) state dicts."""
+    return xvapitch_state_dict(g_params, cfg), vits_disc_state_dict(d_params)
+
+
+def _norm_except(w: torch.Tensor, dim: int) -> torch.Tensor:
+    dims = [d for d in range(w.dim()) if d != dim]
+    return torch.sqrt(torch.sum(w * w, dim=dims, keepdim=True))
+
+
+def _renorm(sd: Dict[str, torch.Tensor], src_dim: int, dst_dim: int) -> Dict[str, torch.Tensor]:
+    """Re-split each upsampling (weight_g, weight_v) pair normalised over
+    ``src_dim`` into one normalised over ``dst_dim``: the effective weight
+    w = g v / ||v|| is kept (computed in float64), v = w and g = ||w||.
+    Pairs already over ``dst_dim`` pass through."""
+    out = OrderedDict(sd)
+    for kg in sd:
+        if not _UPS_G.search(kg):
+            continue
+        g = sd[kg]
+        if g.shape[src_dim] == 1:
+            continue  # already normalised over dst_dim
+        kv = kg[:-1] + "v"
+        v = sd[kv].double()
+        w = g.double() * v / _norm_except(v, src_dim)
+        out[kg] = _norm_except(w, dst_dim).to(torch.float32)
+        out[kv] = w.to(torch.float32)
+    return out
+
+
+def ups_from_reference(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A reference state dict (``weight_g`` of the decoder's ConvTranspose1d
+    ``ups`` of shape (in, 1, 1): per input channel) → the port's layout
+    (1, out, 1): per output channel. Every other entry is unchanged; so is
+    every upsampling conv's effective weight, up to fp32 rounding."""
+    return _renorm(sd, 0, 1)
+
+
+def ups_to_reference(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The inverse of ``ups_from_reference``: the port's state dict → the
+    reference's layout, for writing a ``.pt`` that xVASynth loads."""
+    return _renorm(sd, 1, 0)

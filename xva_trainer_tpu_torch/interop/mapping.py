@@ -1,10 +1,11 @@
-"""Declarative torch<->flax parameter mapping: the export direction.
+"""Declarative torch<->flax parameter mapping: flax params into the port.
 
-The port's own copy of the export half of ``xva_trainer_tpu/interop/mapping.py``
-(the port imports nothing of the JAX package). Each Rule binds one torch
-state-dict entry (or a weight-norm g/v pair) to one flax param path with a
-layout kind; ``apply_export`` turns nested flax variables, as numpy arrays,
-into a flat torch-named state dict.
+The port's own copy of the rule machinery of
+``xva_trainer_tpu/interop/mapping.py`` (the port imports nothing of the JAX
+package). Each Rule binds one torch state-dict entry (or a weight-norm g/v
+pair) to one flax param path with a layout kind; ``apply_carry`` turns
+nested flax variables, as numpy arrays, into a flat torch-named state dict
+of the port's modules.
 
 Layout kinds (flax shape -> torch shape):
 - conv1d:   (k, in, out)      -> (out, in, k)
@@ -15,11 +16,14 @@ Layout kinds (flax shape -> torch shape):
 - embed/id: unchanged
 - flat:     reshape to ``tshape`` (ElementwiseAffine (C,) -> (C, 1))
 
-Weight-normed convs ("wn_" prefix) are joint rules over
-(kernel, scale) -> (weight_g, weight_v): flax normalizes the kernel over its
-non-feature axes while torch normalizes v over dims != 0, so the effective
-weight w = scale * kernel/||kernel|| is recombined and re-decomposed the
-torch way (g = ||w|| over dims != 0, v = w) — forward-exact in both.
+Weight-normed convs ("wn_" prefix) are joint rules over (kernel, scale) ->
+(weight_v, weight_g), carried as they are: ``weight_v`` the kernel in torch
+layout, ``weight_g`` the scale, each normalised over the output axis as
+flax does (dim 1 for the transposed conv). The same gradients of the
+effective weight then move (g, v) as they move flax's (scale, kernel). (The
+JAX package's export re-splits the pair torch's way, g = ||w|| and v = w,
+over dim 0: the reference's file layout, which ``convert.ups_from_reference``
+reads.)
 """
 from __future__ import annotations
 
@@ -56,27 +60,6 @@ def _f2t(w: np.ndarray, kind: str, tshape=None) -> np.ndarray:
     return w
 
 
-def _norm_except(w: np.ndarray, axis: int) -> np.ndarray:
-    """L2 norm over all axes except `axis`."""
-    axes = tuple(i for i in range(w.ndim) if i != axis)
-    return np.sqrt(np.sum(np.asarray(w, np.float64) ** 2, axis=axes))
-
-
-def _wn_combine_flax(kernel: np.ndarray, scale: np.ndarray) -> np.ndarray:
-    n = _norm_except(kernel, kernel.ndim - 1)
-    shape = (1,) * (kernel.ndim - 1) + (-1,)
-    return (
-        np.asarray(kernel, np.float64) / np.maximum(n.reshape(shape), 1e-12)
-        * scale.reshape(shape)
-    ).astype(np.float32)
-
-
-def _wn_decompose_torch(wt: np.ndarray):
-    g = _norm_except(wt, 0).astype(np.float32)
-    g = g.reshape((-1,) + (1,) * (wt.ndim - 1))
-    return g, wt.astype(np.float32)
-
-
 def _get_path(tree: Dict, path: FlaxPath):
     node = tree
     for p in path:
@@ -84,30 +67,22 @@ def _get_path(tree: Dict, path: FlaxPath):
     return node
 
 
-def apply_export(
-    params: Dict,
-    rules: Sequence[Rule],
-    *,
-    dtype=np.float16,
-) -> "OrderedDict[str, np.ndarray]":
-    """Nested flax variables (numpy leaves) -> flat torch-named state dict."""
+def apply_carry(params: Dict, rules: Sequence[Rule]) -> "OrderedDict[str, np.ndarray]":
+    """Nested flax variables (numpy leaves) -> flat torch-named fp32 state
+    dict of the port's modules (writable, contiguous copies), with each
+    weight-norm (kernel, scale) pair carried as (weight_v, weight_g)."""
     out: "OrderedDict[str, np.ndarray]" = OrderedDict()
     for r in rules:
-        if r.collection == "params":
-            tree = params.get("params", params)
-        else:
-            tree = params[r.collection]
+        tree = params.get("params", params) if r.collection == "params" else params[r.collection]
+        w = np.asarray(_get_path(tree, r.flax_path), np.float32)
         if r.kind.startswith("wn_"):
-            kernel = np.asarray(_get_path(tree, r.flax_path))
-            scale = np.asarray(_get_path(tree, r.scale_path))
-            wf = _wn_combine_flax(kernel, scale)
-            wt = _f2t(wf, r.kind[3:])
-            g, v = _wn_decompose_torch(wt)
-            out[r.torch_key + ".weight_g"] = g.astype(dtype)
-            out[r.torch_key + ".weight_v"] = np.ascontiguousarray(v).astype(dtype)
+            kind = r.kind[3:]
+            v = _f2t(w, kind)
+            shape = [1] * v.ndim
+            shape[1 if kind == "convT1d" else 0] = -1
+            scale = np.asarray(_get_path(tree, r.scale_path), np.float32)
+            out[r.torch_key + ".weight_g"] = np.array(scale.reshape(shape))
+            out[r.torch_key + ".weight_v"] = np.array(v, order="C")
         else:
-            w = np.asarray(_get_path(tree, r.flax_path), np.float32)
-            out[r.torch_key] = np.ascontiguousarray(
-                _f2t(w, r.kind, r.tshape)
-            ).astype(dtype)
+            out[r.torch_key] = np.array(_f2t(w, r.kind, r.tshape), order="C")
     return out

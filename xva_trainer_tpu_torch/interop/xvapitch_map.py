@@ -7,8 +7,9 @@ lang-emb 12, text hidden 268, SDP 256, HiFi-GAN decoder 512), whose key
 names the port's modules carry. Flax side: the JAX package's XVAPitch.
 
 The generator rules cover every parameter of the shipped
-``xVAPitch_5820651.pt`` base checkpoint. The discriminator rules wait for the
-training slice of the port.
+``xVAPitch_5820651.pt`` base checkpoint (and the language classifier's, for
+configs with ``mltts_rc``); the discriminator rules cover the VITS
+discriminator.
 """
 from __future__ import annotations
 
@@ -188,6 +189,46 @@ def hifigan_decoder_rules(
     return rules
 
 
+def scale_disc_rules(tp: str, fp: P, num_convs: int) -> List[Rule]:
+    rules: List[Rule] = []
+    for i in range(num_convs):
+        rules += _wn_conv(f"{tp}.convs.{i}", fp, f"Conv_{i}", f"WeightNorm_{i}")
+    rules += _wn_conv(f"{tp}.conv_post", fp, f"Conv_{num_convs}",
+                      f"WeightNorm_{num_convs}")
+    return rules
+
+
+def period_disc_rules(tp: str, fp: P) -> List[Rule]:
+    rules: List[Rule] = []
+    for i in range(5):
+        rules += _wn_conv(f"{tp}.convs.{i}", fp, f"Conv_{i}", f"WeightNorm_{i}",
+                          kind="wn_conv2d")
+    rules += _wn_conv(f"{tp}.conv_post", fp, "Conv_5", "WeightNorm_5",
+                      kind="wn_conv2d")
+    return rules
+
+
+def vits_disc_rules(tp: str = "disc", fp: P = ()) -> List[Rule]:
+    """VitsDiscriminator: nets.0 = v3 scale disc (6 convs), nets.1-5 = MPD.
+    ``tp=""`` names the keys of the port's own ``VitsDiscriminator``."""
+    pre = f"{tp}." if tp else ""
+    rules = scale_disc_rules(f"{pre}nets.0", fp + ("DiscriminatorS_0",), 6)
+    for j in range(5):
+        rules += period_disc_rules(f"{pre}nets.{j + 1}",
+                                   fp + (f"DiscriminatorP_{j}",))
+    return rules
+
+
+def reversal_classifier_rules() -> List[Rule]:
+    """The language classifier's two linear layers (flax Dense_0, Dense_1)."""
+    rules: List[Rule] = []
+    for i in range(2):
+        f = ("reversal_classifier", f"Dense_{i}")
+        rules += [Rule(f"reversal_classifier._classifier.{i}.weight", f + ("kernel",), "linear"),
+                  Rule(f"reversal_classifier._classifier.{i}.bias", f + ("bias",), "id")]
+    return rules
+
+
 def xvapitch_generator_rules(num_ups: int = 4, num_kernels: int = 3,
                              text_layers: int = 10, posterior_layers: int = 16,
                              flow_wn_layers: int = 4, num_flows: int = 4,
@@ -238,7 +279,8 @@ def xvapitch_generator_rules(num_ups: int = 4, num_kernels: int = 3,
 
 def rules_for_config(cfg) -> List[Rule]:
     """Generator rules matching an XVAPitchConfig instance."""
-    return xvapitch_generator_rules(
+    extra = reversal_classifier_rules() if cfg.mltts_rc else []
+    return extra + xvapitch_generator_rules(
         num_ups=len(cfg.upsample_rates),
         num_kernels=len(cfg.resblock_kernel_sizes),
         text_layers=cfg.text_layers,

@@ -6,12 +6,13 @@ import warnings
 import torch.nn as nn
 
 
-def weight_norm(module: nn.Module) -> nn.Module:
+def weight_norm(module: nn.Module, dim: int = 0) -> nn.Module:
     """Legacy ``torch.nn.utils.weight_norm`` (``weight_g``/``weight_v``, the
-    reference's key names); its deprecation warning is silenced."""
+    reference's key names) over the output axis ``dim``; its deprecation
+    warning is silenced."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
-        return nn.utils.weight_norm(module)
+        return nn.utils.weight_norm(module, dim=dim)
 
 
 def same_conv1d(in_ch: int, out_ch: int, kernel_size: int = 1, dilation: int = 1,

@@ -1,12 +1,22 @@
-"""HiFi-GAN MRF generator in PyTorch (speaker-conditioned).
+"""HiFi-GAN in PyTorch: the MRF generator (speaker-conditioned), the period
+and scale discriminators, and the LSGAN and feature-matching losses.
 
-Counterpart of the generator side of ``xva_trainer_tpu/models/hifigan/models.py``
-(reference python/hifigan/models.py Generator:81-138, ResBlock1:17-55 and the
+Counterpart of ``xva_trainer_tpu/models/hifigan/models.py`` (reference
+python/hifigan/models.py Generator:81-138, ResBlock1:17-55,
+DiscriminatorP:141-177, DiscriminatorS:207-240, losses:276-331, and the
 xVAPitch decoder python/xvapitch/hifigan.py:160-263), channels-first, with
 the reference parameter names. Upsampling is ``ConvTranspose1d`` with
 padding (k-u)//2, which equals flax's ``"SAME"`` transpose conv with a
-spatially flipped kernel (the weight transfer flips it). The discriminators
-are training-side and not ported yet.
+spatially flipped kernel (the weight transfer flips it).
+
+Weight norm normalises every conv over its output axis, as flax's
+``nn.WeightNorm`` does: dim 0 of a Conv1d/Conv2d weight (out, in, ...) and
+dim 1 of the upsampling ConvTranspose1d weight (in, out, k). The reference
+PyTorch trainer normalises the upsampling convs per input channel (dim 0);
+the forward pass is the same either way, but training moves (g, v)
+differently, and the port follows the JAX package. A reference state dict
+converts with ``interop.convert.ups_from_reference``. The v2 MSD's
+spectral norm is not ported (the v3 discriminator has none).
 """
 from __future__ import annotations
 
@@ -105,7 +115,7 @@ class Generator(nn.Module):
             ch = ch0 // (2 ** (i + 1))
             up = nn.ConvTranspose1d(2 * ch, ch, k, u, padding=(k - u) // 2)
             nn.init.normal_(up.weight, 0.0, 0.01)
-            self.ups.append(weight_norm(up))
+            self.ups.append(weight_norm(up, dim=1))  # per output channel, as flax
             for kr, dr in zip(c.resblock_kernel_sizes, c.resblock_dilation_sizes):
                 self.resblocks.append(ResBlock1(ch, kr, tuple(dr)))
         conv_post = same_conv1d(ch0 // (2 ** len(c.upsample_rates)), 1, 7,
@@ -127,3 +137,109 @@ class Generator(nn.Module):
             x = xs / n_k
         x = self.conv_post(F.leaky_relu(x))  # default slope 0.01 here (reference)
         return torch.tanh(x)
+
+
+class DiscriminatorP(nn.Module):
+    """Period discriminator: (B, 1, T) audio reflect-padded to a multiple of
+    the period and folded to (B, 1, T/p, p), then (k, 1) convs with the
+    symmetric (k-1)//2 padding of torch (not flax's "SAME")."""
+
+    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3):
+        super().__init__()
+        self.period = period
+        pad = ((kernel_size - 1) // 2, 0)
+        chans = (1, 32, 128, 512, 1024)
+        self.convs = nn.ModuleList(
+            [weight_norm(nn.Conv2d(a, b, (kernel_size, 1), (stride, 1), padding=pad))
+             for a, b in zip(chans[:-1], chans[1:])]
+            + [weight_norm(nn.Conv2d(1024, 1024, (kernel_size, 1), 1, padding=pad))])
+        self.conv_post = weight_norm(nn.Conv2d(1024, 1, (3, 1), 1, padding=(1, 0)))
+
+    def forward(self, x):
+        B, C, T = x.shape
+        p = self.period
+        if T % p:
+            x = F.pad(x, (0, p - T % p), mode="reflect")
+            T = x.shape[-1]
+        x = x.view(B, C, T // p, p)
+        fmap = []
+        for conv in self.convs:
+            x = F.leaky_relu(conv(x), LRELU_SLOPE)
+            fmap.append(x)
+        x = self.conv_post(x)
+        fmap.append(x)
+        return torch.flatten(x, 1), fmap
+
+
+# v2 MSD scale discriminator (reference python/hifigan/models.py:207-216):
+# (channels, kernel, stride, groups, padding)
+V2_SCALE_SPECS = (
+    (128, 15, 1, 1, 7),
+    (128, 41, 2, 4, 20),
+    (256, 41, 2, 16, 20),
+    (512, 41, 4, 16, 20),
+    (1024, 41, 4, 16, 20),
+    (1024, 41, 1, 16, 20),
+    (1024, 5, 1, 1, 2),
+)
+
+# v3 (xVAPitch) scale discriminator (reference python/xvapitch/model.py:1560-1568)
+V3_SCALE_SPECS = (
+    (16, 15, 1, 1, 7),
+    (64, 41, 4, 4, 20),
+    (256, 41, 4, 16, 20),
+    (1024, 41, 4, 64, 20),
+    (1024, 41, 4, 256, 20),
+    (1024, 5, 1, 1, 2),
+)
+
+
+class DiscriminatorS(nn.Module):
+    """Scale discriminator on raw (B, 1, T) audio: grouped strided convs with
+    explicit padding from ``specs``, weight-normed."""
+
+    def __init__(self, specs: tuple = V2_SCALE_SPECS):
+        super().__init__()
+        convs, cin = [], 1
+        for ch, k, s, g, p in specs:
+            convs.append(weight_norm(nn.Conv1d(cin, ch, k, s, groups=g, padding=p)))
+            cin = ch
+        self.convs = nn.ModuleList(convs)
+        self.conv_post = weight_norm(nn.Conv1d(cin, 1, 3, 1, padding=1))
+
+    def forward(self, x):
+        fmap = []
+        for conv in self.convs:
+            x = F.leaky_relu(conv(x), LRELU_SLOPE)
+            fmap.append(x)
+        x = self.conv_post(x)
+        fmap.append(x)
+        return torch.flatten(x, 1), fmap
+
+
+# ---------------- losses (reference models.py:276-331) ----------------
+
+
+def feature_matching_loss(fmaps_r, fmaps_g):
+    """Σ mean|real_fmap - fake_fmap| × 2, with no gradient on the real side."""
+    loss = 0.0
+    for fr, fg in zip(fmaps_r, fmaps_g):
+        for r, g in zip(fr, fg):
+            loss = loss + torch.mean(torch.abs(r.detach().float() - g.float()))
+    return loss * 2.0
+
+
+def discriminator_loss(outs_real, outs_fake):
+    """LSGAN: Σ mean((1-D(y))²) + mean(D(ŷ)²)."""
+    loss = 0.0
+    for dr, dg in zip(outs_real, outs_fake):
+        loss = loss + torch.mean((1.0 - dr.float()) ** 2) + torch.mean(dg.float() ** 2)
+    return loss
+
+
+def generator_adv_loss(outs_fake):
+    """LSGAN: Σ mean((1-D(ŷ))²)."""
+    loss = 0.0
+    for dg in outs_fake:
+        loss = loss + torch.mean((1.0 - dg.float()) ** 2)
+    return loss

@@ -1,3 +1,4 @@
+from .discriminator import VitsDiscriminator
 from .model import XVAPitch, XVAPitchConfig
 
-__all__ = ["XVAPitch", "XVAPitchConfig"]
+__all__ = ["VitsDiscriminator", "XVAPitch", "XVAPitchConfig"]

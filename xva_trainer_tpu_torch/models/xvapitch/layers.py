@@ -11,10 +11,17 @@ state dict loads with ``strict=True``:
 - WN: gated dilated conv stack with global conditioning and weight norm;
 - DilatedDepthSeparableConv (LayerNorm eps 1e-5, exact-erf GELU),
   ElementwiseAffine and ConvFlow (rational-quadratic spline coupling).
+
+Dropout sits where the JAX layers have it (attention probabilities, the FFN's
+hidden layer, both residual branches of the transformer, WN's input convs,
+each DDSConv step). It is active only in training mode, and its mask is
+drawn from the ``generator`` passed down the forward call: nothing reads the
+global RNG.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -22,6 +29,19 @@ import torch.nn.functional as F
 
 from ...ops.spline import rational_quadratic_spline
 from ..conv import same_conv1d, weight_norm
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1-p and scale by 1/(1-p),
+    in training mode only. The mask is drawn from ``generator`` on its device;
+    without a generator a training-mode dropout raises."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode needs a torch.Generator to draw its mask")
+    keep = torch.rand(x.shape, generator=generator, device=generator.device).to(x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
 
 
 class LayerNorm(nn.Module):
@@ -68,8 +88,9 @@ class RelativePositionMultiHeadAttention(nn.Module):
     (reference glow_tts.py:59-310, window 4)."""
 
     def __init__(self, channels: int, out_channels: int, num_heads: int,
-                 window_size: int = 4):
+                 window_size: int = 4, dropout_p: float = 0.0):
         super().__init__()
+        self.dropout_p = dropout_p
         self.num_heads = num_heads
         self.window_size = window_size
         self.k_channels = channels // num_heads
@@ -81,7 +102,7 @@ class RelativePositionMultiHeadAttention(nn.Module):
         self.emb_rel_k = nn.Parameter(torch.randn(1, 2 * window_size + 1, self.k_channels) * std)
         self.emb_rel_v = nn.Parameter(torch.randn(1, 2 * window_size + 1, self.k_channels) * std)
 
-    def forward(self, x, attn_mask):
+    def forward(self, x, attn_mask, generator: Optional[torch.Generator] = None):
         # x (B, C, T); attn_mask (B, 1, T, T)
         B, C, T = x.shape
         H, kc = self.num_heads, self.k_channels
@@ -95,7 +116,7 @@ class RelativePositionMultiHeadAttention(nn.Module):
         rel_k = _expand_relative_embeddings(self.emb_rel_k, T, self.window_size)
         scores = scores + _relative_to_absolute(torch.matmul(q, rel_k[0].T))
         scores = scores.masked_fill(attn_mask <= 0, -1e4)
-        p = torch.softmax(scores, dim=-1)
+        p = dropout(torch.softmax(scores, dim=-1), self.dropout_p, self.training, generator)
         out = torch.matmul(p, v)
         rel_v = _expand_relative_embeddings(self.emb_rel_v, T, self.window_size)
         out = out + torch.matmul(_absolute_to_relative(p), rel_v[0])
@@ -103,17 +124,19 @@ class RelativePositionMultiHeadAttention(nn.Module):
 
 
 class FeedForwardNetwork(nn.Module):
-    """conv(k) → relu → conv(k), masked before each conv and after."""
+    """conv(k) → relu → dropout → conv(k), masked before each conv and after."""
 
     def __init__(self, in_channels: int, out_channels: int, hidden_channels: int,
-                 kernel_size: int = 3):
+                 kernel_size: int = 3, dropout_p: float = 0.0):
         super().__init__()
+        self.dropout_p = dropout_p
         self.pad = ((kernel_size - 1) // 2, kernel_size - 1 - (kernel_size - 1) // 2)
         self.conv_1 = nn.Conv1d(in_channels, hidden_channels, kernel_size)
         self.conv_2 = nn.Conv1d(hidden_channels, out_channels, kernel_size)
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, generator: Optional[torch.Generator] = None):
         h = torch.relu(self.conv_1(F.pad(x * x_mask, self.pad)))
+        h = dropout(h, self.dropout_p, self.training, generator)
         return self.conv_2(F.pad(h * x_mask, self.pad)) * x_mask
 
 
@@ -125,8 +148,9 @@ class RelativePositionTransformer(nn.Module):
 
     def __init__(self, out_channels: int, hidden_channels: int, hidden_channels_ffn: int,
                  num_heads: int, num_layers: int, kernel_size: int = 3,
-                 window_size: int = 4):
+                 window_size: int = 4, dropout_p: float = 0.0):
         super().__init__()
+        self.dropout_p = dropout_p
         self.out_channels = out_channels
         self.hidden_channels = hidden_channels
         self.num_layers = num_layers
@@ -138,23 +162,24 @@ class RelativePositionTransformer(nn.Module):
             last = i + 1 == num_layers
             ffn_out = out_channels if last else hidden_channels
             self.attn_layers.append(RelativePositionMultiHeadAttention(
-                hidden_channels, hidden_channels, num_heads, window_size))
+                hidden_channels, hidden_channels, num_heads, window_size, dropout_p))
             self.norm_layers_1.append(LayerNorm(hidden_channels, 1e-4))
             self.ffn_layers.append(FeedForwardNetwork(
-                hidden_channels, ffn_out, hidden_channels_ffn, kernel_size))
+                hidden_channels, ffn_out, hidden_channels_ffn, kernel_size, dropout_p))
             self.norm_layers_2.append(LayerNorm(ffn_out, 1e-4))
         if hidden_channels != out_channels:
             self.proj = nn.Conv1d(hidden_channels, out_channels, 1)
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, generator: Optional[torch.Generator] = None):
         # x (B, C, T); x_mask (B, 1, T)
         attn_mask = x_mask.unsqueeze(2) * x_mask.unsqueeze(-1)  # (B, 1, T, T)
+        p, training = self.dropout_p, self.training
         for i in range(self.num_layers):
             last = i + 1 == self.num_layers
             x = x * x_mask
-            y = self.attn_layers[i](x, attn_mask)
+            y = dropout(self.attn_layers[i](x, attn_mask, generator), p, training, generator)
             x = self.norm_layers_1[i](x + y)
-            y = self.ffn_layers[i](x, x_mask)
+            y = dropout(self.ffn_layers[i](x, x_mask, generator), p, training, generator)
             if last and self.hidden_channels != self.out_channels:
                 x = self.proj(x)
             if self.out_channels != 1 or not last:
@@ -167,8 +192,9 @@ class WN(nn.Module):
     (reference wavenet.py:15-118)."""
 
     def __init__(self, hidden_channels: int, kernel_size: int = 5, dilation_rate: int = 1,
-                 num_layers: int = 16, cond_channels: int = 0):
+                 num_layers: int = 16, cond_channels: int = 0, dropout_p: float = 0.0):
         super().__init__()
+        self.dropout_p = dropout_p
         self.hidden_channels = hidden_channels
         self.num_layers = num_layers
         if cond_channels:
@@ -183,13 +209,13 @@ class WN(nn.Module):
             rs_ch = 2 * hidden_channels if i < num_layers - 1 else hidden_channels
             self.res_skip_layers.append(weight_norm(nn.Conv1d(hidden_channels, rs_ch, 1)))
 
-    def forward(self, x, x_mask, g=None):
+    def forward(self, x, x_mask, g=None, generator: Optional[torch.Generator] = None):
         # x (B, H, T); x_mask (B, 1, T); g (B, cond, 1)
         Hc = self.hidden_channels
         output = torch.zeros_like(x)
         g_all = self.cond_layer(g) if (g is not None and hasattr(self, "cond_layer")) else None
         for i in range(self.num_layers):
-            acts = self.in_layers[i](x)
+            acts = dropout(self.in_layers[i](x), self.dropout_p, self.training, generator)
             if g_all is not None:
                 acts = acts + g_all[:, i * 2 * Hc: (i + 1) * 2 * Hc]
             acts = torch.tanh(acts[:, :Hc]) * torch.sigmoid(acts[:, Hc:])
@@ -206,8 +232,10 @@ class DilatedDepthSeparableConv(nn.Module):
     """Depthwise dilated (k^i) + pointwise convs with per-step LayerNorm
     (eps 1e-5) and exact GELU (reference sdp.py:40-94)."""
 
-    def __init__(self, channels: int, kernel_size: int = 3, num_layers: int = 3):
+    def __init__(self, channels: int, kernel_size: int = 3, num_layers: int = 3,
+                 dropout_p: float = 0.0):
         super().__init__()
+        self.dropout_p = dropout_p
         self.num_layers = num_layers
         self.convs_sep = nn.ModuleList()
         self.convs_1x1 = nn.ModuleList()
@@ -220,13 +248,13 @@ class DilatedDepthSeparableConv(nn.Module):
             self.norms_1.append(LayerNorm(channels, 1e-5))
             self.norms_2.append(LayerNorm(channels, 1e-5))
 
-    def forward(self, x, x_mask, g=None):
+    def forward(self, x, x_mask, g=None, generator: Optional[torch.Generator] = None):
         if g is not None:
             x = x + g
         for i in range(self.num_layers):
             y = F.gelu(self.norms_1[i](self.convs_sep[i](x * x_mask)))
             y = F.gelu(self.norms_2[i](self.convs_1x1[i](y)))
-            x = x + y
+            x = x + dropout(y, self.dropout_p, self.training, generator)
         return x * x_mask
 
 

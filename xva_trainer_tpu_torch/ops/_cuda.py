@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
-KERNELS = ("fused_stft",)
+KERNELS = ("fused_stft", "mas")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -27,6 +27,7 @@ from scipy.io import wavfile
 from . import resolve_device
 from .data.text import v3_text_to_ids
 from .data.xva_dataset import lang_to_id
+from .interop.convert import ups_from_reference
 from .models.xvapitch import XVAPitch, XVAPitchConfig
 from .ops.fused_stft import mel_spectrogram_fused
 from .ops.loudness import normalize_ebu_r128
@@ -49,8 +50,10 @@ def load_xvapitch(path: str, cfg: XVAPitchConfig = XVAPitchConfig(),
     dict, usually fp16, or one under ``model``/``state_dict``/``generator``)
     → an ``XVAPitch`` in eval mode on ``device``, loaded with
     ``strict=True``. The ``disc.*`` discriminator weights of a full training
-    checkpoint and its ``step`` are training state, which the port does not
-    have yet; they are set aside before the strict load."""
+    checkpoint and its ``step`` are training state, which serving does not
+    need; they are set aside before the strict load. The decoder's
+    upsampling weight norm is moved to the port's layout
+    (``interop.convert.ups_from_reference``)."""
     dev = resolve_device(device)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     for key in ("model", "state_dict", "generator"):
@@ -59,7 +62,9 @@ def load_xvapitch(path: str, cfg: XVAPitchConfig = XVAPitchConfig(),
             break
     sd = {k: v for k, v in sd.items() if not k.startswith("disc.") and k != "step"}
     model = XVAPitch(cfg)
-    model.load_state_dict(sd, strict=True)
+    # the reference normalises the decoder's upsampling convs per input
+    # channel, the port per output channel (as the JAX package does)
+    model.load_state_dict(ups_from_reference(sd), strict=True)
     return model.eval().to(dev)
 
 
