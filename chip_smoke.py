@@ -18,7 +18,9 @@ points a user calls, at the full width of the shipped "big" xVAPitch
    at the voice-conversion clip beside the plain version's and the
    ``torch.stft`` chain's (a library yardstick), each as the call's time
    seen from the host (``ms``, ``cuda_ms``) and as device time
-   (``device_ms``), and its bound;
+   (``device_ms``), and its bound; the same three at the train step's own
+   shapes (``materialize_spec``'s 64 x 196 608 samples with the linear
+   output, the mel loss's 64 x 8 192, mel only);
 4. ``featurize``: ``featurize_batch(mode="linear")`` on that bucket, twice
    (the first call in the process, then warm), held against the CPU, with
    the host/device split of each call's wall time;
@@ -30,11 +32,11 @@ points a user calls, at the full width of the shipped "big" xVAPitch
    held against the CPU;
 7. ``model_gpu_vs_cpu``: one short request through the model on the card and
    on the CPU;
-8. ``mas``: the MAS kernel against its plain version, paths identical, on
-   the trainer's largest bucket (B = 64, 192 tokens x 768 frames, ragged),
-   one token, a square, more tokens than frames, extreme magnitudes, bf16
-   values and more than 1024 tokens; its time at the trainer's bucket beside
-   the plain version's and both bounds;
+8. ``mas``: the MAS kernel against its plain version, paths identical, in
+   14 cases (``mas_case``), each in the four value/mask type pairs; its
+   time at the trainer's largest bucket (B = 64, 192 tokens x 768 frames,
+   ragged) beside the plain version's, and at the four v3 buckets, each
+   with its bound at the items' own lengths and the full tensors';
 9. ``train_gpu_vs_cpu``: one fp32 step (AMP and TF32 off, SGD on both
    models) of the full-width model and discriminator at B = 2 on the
    64 x 256 bucket, from the same weights, batch and draws, on the card and
@@ -71,6 +73,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -357,17 +360,38 @@ def update_mismatch(old, new_refs, new, scale: float = 1.0):
     return rows[:5], [row for row in rows if row[0] > 1.0]
 
 
-def mas_case(name: str, dev, seed: int = 0):
+MAS_CASES = {  # name: (B, t_x, t_y)
+    "trainer": (64, 192, 768), "one_token": (4, 1, 50), "square": (3, 64, 64),
+    "more_tokens": (3, 40, 20), "extreme": (2, 12, 900), "bf16": (64, 192, 768),
+    "long_text": (2, 1100, 1500), "start_minus_inf": (8, 192, 768),
+    "minus_inf_column": (8, 192, 768), "nan_under_mask": (8, 192, 768),
+    "fractional_mask": (8, 192, 768), "non_rectangular_mask": (8, 192, 768),
+    "odd_frames": (4, 50, 333), "fastpitch": (16, 256, 896), "long_frames": (2, 40, 7000)}
+MAS_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
+# cases in which every active frame holds one nonzero path entry
+MAS_ONE_PER_FRAME = ("trainer", "one_token", "square", "more_tokens", "extreme", "bf16",
+                     "long_text", "fractional_mask", "odd_frames", "fastpitch",
+                     "long_frames")
+# the v3 batcher's buckets (XvaBatcher.batch_size_for, MAX_BUCKET_SCALE = 2):
+# (B, t_x, t_y, the previous bucket's t_y)
+MAS_BUCKETS = [(128, 64, 256, 128), (128, 96, 384, 256), (96, 128, 512, 384),
+               (64, 192, 768, 512)]
+
+
+def mas_case(name: str, dev, value_dtype=None, mask_dtype=torch.float32, seed: int = 0):
     """(value, mask) of one MAS case: the trainer's largest bucket with
     ragged lengths, one token, a square, more tokens than frames, extreme
-    magnitudes (3e6·N(0,1) - 2e6 over 900 frames), bf16 values, and more
-    than 1024 tokens (the kernel's loop over chunks of text positions, and
-    shared memory above 48 KB). The same cases as
-    tests/test_torch_kernels_cuda.py."""
+    magnitudes (3e6·N(0,1) - 2e6 over 900 frames), bf16 values, more than
+    256 tokens (several DP warps, 8-frame tiles, the direction bits in
+    scratch); -inf at (0, 0) (the backtrack walks below x = 0), a -inf column
+    at frame 0, NaN under the mask, a fractional mask, zeros inside the
+    lengths; an odd t_y (bf16 rows staged without cp.async); FastPitch's
+    256 x 896; 7 000 frames of 40 tokens (the bits in scratch, one warp). The
+    value is bf16 for "bf16" unless ``value_dtype`` says otherwise. The same
+    cases as tests/test_torch_kernels_cuda.py."""
     rng = np.random.default_rng(seed)
-    B, tx, ty = {"trainer": (64, 192, 768), "one_token": (4, 1, 50), "square": (3, 64, 64),
-                 "more_tokens": (3, 40, 20), "extreme": (2, 12, 900), "bf16": (64, 192, 768),
-                 "long_text": (2, 1100, 1500)}[name]
+    B, tx, ty = MAS_CASES[name]
     value = rng.standard_normal((B, tx, ty))
     if name == "extreme":
         value = value * 3e6 - 2e6
@@ -377,10 +401,61 @@ def mas_case(name: str, dev, seed: int = 0):
     if name == "more_tokens":
         x_len = np.maximum(x_len, y_len + 1).clip(max=tx)
     mask = ((np.arange(tx)[None, :, None] < x_len[:, None, None])
+            & (np.arange(ty)[None, None, :] < y_len[:, None, None])).astype(np.float64)
+    if name == "start_minus_inf":
+        value[:, 0, 0] = -np.inf
+    elif name == "minus_inf_column":
+        value[:, :, 0] = -np.inf
+    elif name == "fractional_mask":
+        mask *= rng.uniform(0.2, 1.0, mask.shape)
+    elif name in ("nan_under_mask", "non_rectangular_mask"):
+        for b in range(B):
+            xs = rng.integers(1, max(2, x_len[b]), 4)
+            ys = rng.integers(1, max(2, y_len[b]), 4)
+            if name == "nan_under_mask":
+                value[b, xs, ys] = np.nan
+            else:
+                mask[b, xs, ys] = 0
+        if name == "nan_under_mask":
+            value[1, 0, 0] = np.nan
+    if value_dtype is None:
+        value_dtype = torch.bfloat16 if name == "bf16" else torch.float32
+    return (torch.from_numpy(value.astype(np.float32)).to(dev, value_dtype),
+            torch.from_numpy(mask.astype(np.float32)).to(dev, mask_dtype))
+
+
+def mas_bucket(B: int, tx: int, ty: int, prev_ty: int, dev, seed: int):
+    """(value, mask) fp32 at one v3 bucket: y_len uniform in (prev_ty, ty],
+    x_len in [tx/4, tx], item 0 full."""
+    rng = np.random.default_rng(seed)
+    x_len = rng.integers(tx // 4, tx + 1, B)
+    y_len = rng.integers(prev_ty + 1, ty + 1, B)
+    x_len[0], y_len[0] = tx, ty
+    mask = ((np.arange(tx)[None, :, None] < x_len[:, None, None])
             & (np.arange(ty)[None, None, :] < y_len[:, None, None]))
-    dtype = torch.bfloat16 if name == "bf16" else torch.float32
-    return (torch.from_numpy(value.astype(np.float32)).to(dev, dtype),
+    return (torch.from_numpy(rng.standard_normal((B, tx, ty)).astype(np.float32)).to(dev),
             torch.from_numpy(mask.astype(np.float32)).to(dev))
+
+
+def mas_bound(value: torch.Tensor, mask: torch.Tensor) -> dict:
+    """The least time for MAS on these inputs. Bytes: what the function needs
+    at the items' own lengths, value and mask in [0, x_len) x [0, y_len),
+    the whole path written once, and the mask's row 0 and column 0 (the
+    lengths); beside it the full tensors' bytes (value, mask, path). The
+    chain: the longest item's y_len dependent steps of an add and a max."""
+    from xva_trainer_tpu_torch.ops import mas
+
+    B, tx, ty = value.shape
+    x_len, y_len = (t.long().cpu() for t in mas.mask_lengths(mask))
+    vb, mb = value.element_size(), mask.element_size()
+    needed = int((x_len * y_len).sum()) * (vb + mb) + B * tx * ty * vb + B * (tx + ty) * mb
+    full = B * tx * ty * (vb + mb + vb)
+    bytes_ms, full_ms = needed / H100_HBM_BYTES_S * 1e3, full / H100_HBM_BYTES_S * 1e3
+    chain_ms = int(y_len.max()) * 2 * FP32_OP_CYCLES / H100_BOOST_HZ * 1e3
+    return {"mbytes": needed / 1e6, "bytes_bound_ms": bytes_ms, "full_mbytes": full / 1e6,
+            "full_bytes_bound_ms": max(full_ms, chain_ms), "chain_bound_ms": chain_ms,
+            "bound_ms": max(bytes_ms, chain_ms),
+            "bound_by": "bytes" if bytes_ms >= chain_ms else "operations"}
 
 
 def train_phases(cfg, dev):
@@ -569,7 +644,8 @@ def main() -> int:
 
     # ---- 2. kernels ----
     t0 = time.perf_counter()
-    logs = {name: _cuda.build(name) for name in _cuda.KERNELS}
+    with ThreadPoolExecutor(len(_cuda.KERNELS)) as pool:  # one nvcc a source, all at once
+        logs = dict(zip(_cuda.KERNELS, pool.map(_cuda.build, _cuda.KERNELS)))
     emit("kernels", kernels=list(_cuda.KERNELS), build_seconds=time.perf_counter() - t0,
          ptxas={k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                 for k, v in logs.items()})
@@ -619,10 +695,10 @@ def main() -> int:
     mel_nnz = int((fb != 0).sum())
     n = cfg.n_fft
 
-    def bound(B, T, F):
+    def bound(B, T, F, linear=True):
         flops = B * F * (n + 2.5 * n * np.log2(n) + 4 * cfg.n_freqs + 2 * mel_nnz
                          + 2 * cfg.n_mels)
-        nbytes = 4 * (B * T + B * F * (cfg.n_mels + cfg.n_freqs))
+        nbytes = 4 * (B * T + B * F * (cfg.n_mels + (cfg.n_freqs if linear else 0)))
         t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_HBM_BYTES_S * 1e3
         return flops, nbytes, max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -673,36 +749,60 @@ def main() -> int:
         buf = torch.empty((times * B, cfg.n_freqs, F), device=dev)
         tb[f"{key}_ms"] = device_ms(functools.partial(buf.fill_, 0.0), flush)
         tb[f"{key}_gb_per_s"] = 4 * buf.numel() / tb[f"{key}_ms"] / 1e6
+    # the train step's own shapes: materialize_spec's linear spectrogram of a
+    # 64 x 768-frame bucket's audio, and the mel loss's real side on the
+    # 64 segments of 32 frames (mel only); both center=True, 2 launches a step
+    step_shapes = {}
+    for key, Bs, Ts, lin in (("materialize_spec", 64, 768 * HOP, True),
+                             ("mel_loss_real", 64, 32 * HOP, False)):
+        y = torch.from_numpy(np.random.default_rng(4).uniform(-0.5, 0.5, (Bs, Ts))
+                             .astype(np.float32)).to(dev)
+        calls = {"ms": functools.partial(fs.mel_spectrogram_fused, y, cfg, center=True,
+                                         return_linear=lin),
+                 "plain_ms": functools.partial(fs.mel_spectrogram_fused_reference, y, cfg,
+                                               center=True, return_linear=lin),
+                 "library_ms": functools.partial(library, y, True)}
+        runs = {key2: [] for k in calls for key2 in (k, k.replace("ms", "device_ms"))}
+        for order in (list(calls), list(calls)[::-1]):
+            for k in order:
+                runs[k].append(cuda_ms(calls[k], flush=flush))
+                runs[k.replace("ms", "device_ms")].append(device_ms(calls[k], flush))
+        Fs = 1 + Ts // cfg.hop_length
+        _, s_bytes, s_bound_ms, s_bound_by = bound(Bs, Ts, Fs, linear=lin)
+        t = {k: sum(v) / len(v) for k, v in runs.items()}
+        t.update(shape=[Bs, Ts], frames=Fs, linear=lin, launches_per_step=1, mbytes=s_bytes / 1e6,
+                 bound_ms=s_bound_ms, bound_by=s_bound_by,
+                 bound_share_of_device_ms=s_bound_ms / t["device_ms"], runs=runs)
+        step_shapes[key] = t
     emit("fused_stft", bucket=[B, T], frames=F, cases=cases, max_abs_err=max_err,
          mean_abs_err=mean_err, timing=timing, library="torch.stft + abs + mel matmul + log",
          gflop=flops / 1e9, mel_nnz=mel_nnz, mbytes=nbytes / 1e6, bound_ms=bound_ms,
          bound_by=bound_by, kernel_gflop=kernel_flops / 1e9,
-         kernel_ops_ms=kernel_flops / H100_FP32_FLOPS * 1e3, gpu=smi)
+         kernel_ops_ms=kernel_flops / H100_FP32_FLOPS * 1e3, train_step_shapes=step_shapes,
+         gpu=smi)
 
     # ---- 8. mas: the kernel against its plain version, paths identical ----
     mas_cases, mas_mismatch = [], 0
-    for name in ("trainer", "one_token", "square", "more_tokens", "extreme", "bf16",
-                 "long_text"):
-        value, mask = mas_case(name, dev)
-        path = mas.maximum_path(value, mask)
-        ref = mas.maximum_path_reference(value, mask)
-        torch.cuda.synchronize()
-        bad = int((path != ref).sum())
-        _, y_len = mas.mask_lengths(mask)
-        frames_on_path = bool(torch.equal(path.float().sum(dim=(1, 2)).long(), y_len.long()))
-        mas_mismatch += bad
-        mas_cases.append({"case": name, "shape": list(value.shape), "dtype": str(value.dtype),
-                          "mismatches": bad, "every_frame_on_path": frames_on_path})
-        check(bad == 0 and frames_on_path and path.dtype == value.dtype,
-              f"mas {name}: {bad} path entries differ from the plain version")
+    for name in MAS_CASES:
+        for value_dtype, mask_dtype in MAS_PAIRS:
+            value, mask = mas_case(name, dev, value_dtype, mask_dtype)
+            path = mas.maximum_path(value, mask)
+            ref = mas.maximum_path_reference(value, mask)
+            torch.cuda.synchronize()
+            bad = int((path != ref).sum())
+            _, y_len = mas.mask_lengths(mask)
+            per_frame = bool(torch.equal((path != 0).sum(dim=(1, 2)).long(), y_len.long()))
+            mas_mismatch += bad
+            mas_cases.append({"case": name, "shape": list(value.shape),
+                              "dtype": str(value.dtype), "mask_dtype": str(mask.dtype),
+                              "mismatches": bad, "every_frame_on_path": per_frame})
+            check(bad == 0 and (per_frame or name not in MAS_ONE_PER_FRAME)
+                  and path.dtype == value.dtype,
+                  f"mas {name} {value.dtype}/{mask.dtype}: {bad} path entries differ from the "
+                  f"plain version, one entry a frame: {per_frame}")
     value, mask = mas_case("trainer", dev)
     mB, mtx, mty = value.shape
-    # bytes: the value and the mask read once, the path written once; the
-    # chain: t_y dependent steps of an add and a max each
-    mas_bytes = mB * mtx * mty * (value.element_size() + mask.element_size()
-                                  + value.element_size())
-    mas_bytes_ms = mas_bytes / H100_HBM_BYTES_S * 1e3
-    mas_chain_ms = mty * 2 * FP32_OP_CYCLES / H100_BOOST_HZ * 1e3
+    trainer_bound = mas_bound(value, mask)
     mas_t = {"ms": [], "device_ms": [], "plain_ms": []}
     kernel_call = functools.partial(mas.maximum_path, value, mask)
     plain_call = functools.partial(mas.maximum_path_reference, value, mask)
@@ -714,12 +814,27 @@ def main() -> int:
             else:  # some 10 000 small launches a call: a few calls suffice
                 mas_t["plain_ms"].append(cuda_ms(fn, iters=3, flush=flush))
     mas_timing = {k: sum(v) / len(v) for k, v in mas_t.items()}
+    # the kernel at each v3 bucket (the plain version at the largest only)
+    mas_buckets = []
+    for i, (bB, btx, bty, prev) in enumerate(MAS_BUCKETS):
+        value, mask = mas_bucket(bB, btx, bty, prev, dev, seed=20 + i)
+        runs = {"ms": [], "device_ms": []}
+        call = functools.partial(mas.maximum_path, value, mask)
+        for _ in range(2):
+            runs["ms"].append(cuda_ms(call, flush=flush))
+            runs["device_ms"].append(device_ms(call, flush))
+        if i == len(MAS_BUCKETS) - 1:
+            runs["plain_ms"] = [cuda_ms(functools.partial(mas.maximum_path_reference, value,
+                                                          mask), iters=3, flush=flush)]
+        rec = {"bucket": [bB, btx, bty], **{k: sum(v) / len(v) for k, v in runs.items()},
+               **mas_bound(value, mask), "runs": runs}
+        rec["bound_share_of_device_ms"] = rec["bound_ms"] / rec["device_ms"]
+        rec["full_bytes_bound_share_of_device_ms"] = rec["full_bytes_bound_ms"] / rec["device_ms"]
+        mas_buckets.append(rec)
     emit("mas", cases=mas_cases, mismatches=mas_mismatch, trainer_shape=[mB, mtx, mty],
-         timing=mas_timing, runs=mas_t, mbytes=mas_bytes / 1e6, bytes_bound_ms=mas_bytes_ms,
-         chain_bound_ms=mas_chain_ms, bound_ms=max(mas_bytes_ms, mas_chain_ms),
-         bound_by="bytes" if mas_bytes_ms >= mas_chain_ms else "operations",
-         bound_share_of_device_ms=max(mas_bytes_ms, mas_chain_ms) / mas_timing["device_ms"],
-         library="none: no PyTorch call computes MAS", gpu=smi)
+         timing=mas_timing, runs=mas_t, **trainer_bound,
+         bound_share_of_device_ms=trainer_bound["bound_ms"] / mas_timing["device_ms"],
+         buckets=mas_buckets, library="none: no PyTorch call computes MAS", gpu=smi)
 
     # ---- the main path: 4. featurize → 5. synthesize → 6. voice_convert ----
     _cuda.reset_launch_counts()
@@ -846,15 +961,25 @@ def main() -> int:
         "plain_device_ms": tb["plain_device_ms"], "library_device_ms": tb["library_device_ms"],
         "launches_by_path": {p: c["fused_stft"] for p, c in by_path.items()},
         "launches_per_train_step": train_launches["fused_stft"] / train["timed_steps"],
+        "train_step_shapes": {k: {m: v[m] for m in ("shape", "linear", "ms", "device_ms",
+                                                    "plain_ms", "plain_device_ms",
+                                                    "library_ms", "library_device_ms",
+                                                    "bound_ms", "bound_by",
+                                                    "launches_per_step")}
+                              for k, v in step_shapes.items()},
     }, {
         "name": "mas", "route": "cuda", "source": "xva_trainer_tpu_torch/csrc/mas.cu",
         "replaces": "xva_trainer_tpu/ops/mas.py:30",  # lax.scan code, not Pallas
         "launches": train_launches["mas"], "max_abs_err": 0.0, "path_mismatches": mas_mismatch,
         "ms": mas_timing["ms"], "plain_ms": mas_timing["plain_ms"],
-        "bound_ms": max(mas_bytes_ms, mas_chain_ms),
-        "bound_by": "bytes" if mas_bytes_ms >= mas_chain_ms else "operations",
+        "bound_ms": trainer_bound["bound_ms"], "bound_by": trainer_bound["bound_by"],
         "library_ms": None, "device_ms": mas_timing["device_ms"],
-        "bytes_bound_ms": mas_bytes_ms, "chain_bound_ms": mas_chain_ms,
+        "bytes_bound_ms": trainer_bound["bytes_bound_ms"],
+        "full_bytes_bound_ms": trainer_bound["full_bytes_bound_ms"],
+        "chain_bound_ms": trainer_bound["chain_bound_ms"],
+        "buckets": [{k: b[k] for k in ("bucket", "ms", "device_ms", "bound_ms", "bound_by",
+                                       "full_bytes_bound_ms", "bound_share_of_device_ms")}
+                    for b in mas_buckets],
         "launches_by_path": {p: c["mas"] for p, c in by_path.items()},
         "launches_per_train_step": train_launches["mas"] / train["timed_steps"],
     }]

@@ -135,16 +135,33 @@ def test_kernel_rejects_other_n_fft(cuda):
 # ---------------- MAS ----------------
 
 
-def mas_case(name, device, seed=0):
+MAS_CASES = {  # name: (B, t_x, t_y)
+    "trainer": (64, 192, 768), "one_token": (4, 1, 50), "square": (3, 64, 64),
+    "more_tokens": (3, 40, 20), "extreme": (2, 12, 900), "bf16": (64, 192, 768),
+    "long_text": (2, 1100, 1500), "start_minus_inf": (8, 192, 768),
+    "minus_inf_column": (8, 192, 768), "nan_under_mask": (8, 192, 768),
+    "fractional_mask": (8, 192, 768), "non_rectangular_mask": (8, 192, 768),
+    "odd_frames": (4, 50, 333), "fastpitch": (16, 256, 896), "long_frames": (2, 40, 7000)}
+MAS_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
+# cases in which every active frame holds one nonzero path entry
+MAS_ONE_PER_FRAME = ("trainer", "one_token", "square", "more_tokens", "extreme", "bf16",
+                     "long_text", "fractional_mask", "odd_frames", "fastpitch",
+                     "long_frames")
+
+
+def mas_case(name, device, value_dtype=None, mask_dtype=torch.float32, seed=0):
     """(value, mask) of one MAS case: the trainer's largest bucket with
     ragged lengths, one token, a square, more tokens than frames, extreme
-    magnitudes over 900 frames, bf16 values, and more than 1024 tokens (the
-    kernel's loop over chunks of text positions, and shared memory above
-    48 KB)."""
+    magnitudes over 900 frames, bf16 values, more than 256 tokens (several
+    DP warps, 8-frame tiles, the direction bits in scratch); -inf at (0, 0)
+    (the backtrack walks below x = 0), a -inf column at frame 0, NaN under
+    the mask, a fractional mask, zeros inside the lengths; an odd t_y (bf16
+    rows staged without cp.async); FastPitch's 256 x 896; 7 000 frames of 40
+    tokens (the bits in scratch, one warp). The value is bf16
+    for "bf16" unless ``value_dtype`` says otherwise."""
     rng = np.random.default_rng(seed)
-    B, tx, ty = {"trainer": (64, 192, 768), "one_token": (4, 1, 50), "square": (3, 64, 64),
-                 "more_tokens": (3, 40, 20), "extreme": (2, 12, 900), "bf16": (64, 192, 768),
-                 "long_text": (2, 1100, 1500)}[name]
+    B, tx, ty = MAS_CASES[name]
     value = rng.standard_normal((B, tx, ty))
     if name == "extreme":
         value = value * 3e6 - 2e6
@@ -153,17 +170,34 @@ def mas_case(name, device, seed=0):
     x_len[0], y_len[0] = tx, ty
     if name == "more_tokens":
         x_len = np.maximum(x_len, y_len + 1).clip(max=tx)
-    mask = (np.arange(tx)[None, :, None] < x_len[:, None, None]) & \
-        (np.arange(ty)[None, None, :] < y_len[:, None, None])
-    dtype = torch.bfloat16 if name == "bf16" else torch.float32
-    return (torch.from_numpy(value.astype(np.float32)).to(device, dtype),
-            torch.from_numpy(mask.astype(np.float32)).to(device))
+    mask = ((np.arange(tx)[None, :, None] < x_len[:, None, None])
+            & (np.arange(ty)[None, None, :] < y_len[:, None, None])).astype(np.float64)
+    if name == "start_minus_inf":
+        value[:, 0, 0] = -np.inf
+    elif name == "minus_inf_column":
+        value[:, :, 0] = -np.inf
+    elif name == "fractional_mask":
+        mask *= rng.uniform(0.2, 1.0, mask.shape)
+    elif name in ("nan_under_mask", "non_rectangular_mask"):
+        for b in range(B):
+            xs = rng.integers(1, max(2, x_len[b]), 4)
+            ys = rng.integers(1, max(2, y_len[b]), 4)
+            if name == "nan_under_mask":
+                value[b, xs, ys] = np.nan
+            else:
+                mask[b, xs, ys] = 0
+        if name == "nan_under_mask":
+            value[1, 0, 0] = np.nan
+    if value_dtype is None:
+        value_dtype = torch.bfloat16 if name == "bf16" else torch.float32
+    return (torch.from_numpy(value.astype(np.float32)).to(device, value_dtype),
+            torch.from_numpy(mask.astype(np.float32)).to(device, mask_dtype))
 
 
-@pytest.mark.parametrize("name", ["trainer", "one_token", "square", "more_tokens", "extreme",
-                                  "bf16", "long_text"])
-def test_mas_kernel_paths_equal_plain(cuda, name):
-    value, mask = mas_case(name, cuda)
+@pytest.mark.parametrize("pair", MAS_PAIRS, ids=lambda p: "-".join(str(t)[6:] for t in p))
+@pytest.mark.parametrize("name", list(MAS_CASES))
+def test_mas_kernel_paths_equal_plain(cuda, name, pair):
+    value, mask = mas_case(name, cuda, *pair)
     before = _cuda.LAUNCHES["mas"]
     path = mas.maximum_path(value, mask)
     ref = mas.maximum_path_reference(value, mask)
@@ -171,9 +205,9 @@ def test_mas_kernel_paths_equal_plain(cuda, name):
     assert _cuda.LAUNCHES["mas"] == before + 1
     assert path.dtype == value.dtype and path.shape == value.shape and path.is_cuda
     assert torch.equal(path, ref), int((path != ref).sum())
-    # one text position per valid frame: every frame of each item is on the path
-    _, y_len = mas.mask_lengths(mask)
-    assert torch.equal(path.float().sum(dim=(1, 2)).long(), y_len.long())
+    if name in MAS_ONE_PER_FRAME:  # one text position per valid frame
+        _, y_len = mas.mask_lengths(mask)
+        assert torch.equal((path != 0).sum(dim=(1, 2)).long(), y_len.long())
 
 
 def test_mas_kernel_empty_batch_and_bad_input(cuda):
@@ -183,6 +217,6 @@ def test_mas_kernel_empty_batch_and_bad_input(cuda):
     assert _cuda.LAUNCHES["mas"] == before
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         mas.maximum_path(value.half(), mask)
-    with pytest.raises(ValueError, match="shared"):
+    with pytest.raises(ValueError, match="shared memory"):
         mas.maximum_path(torch.zeros((1, 4096, 4096), device=cuda),
                          torch.ones((1, 4096, 4096), device=cuda))
