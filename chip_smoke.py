@@ -55,14 +55,26 @@ points a user calls, at the full width of the shipped "big" xVAPitch
    its 7-step accumulation, dropout on, draws from a CUDA generator) at
    B = 64 on the 192 x 768 bucket, or the largest batch that fits: 2 warm-up
    and 5 timed steps, frames a second, peak memory, the host's share of one
-   profiled step, every loss component, and each kernel's launches a step.
+   profiled step, every loss component, and each kernel's launches a step;
+13. ``data`` (run after phase 7, before phase 9): the v3 data path from a
+   seeded dataset on disk (256 voiced clips, 64 in each v3 bucket, English
+   text) to the training step: ``preprocess_audio`` →
+   ``extract_speaker_embeddings`` → ``XvaFeatureCache.build`` (the fused
+   STFT kernel, one launch a group of 8 clips, under the profiler) →
+   ``get_dataset_embedding`` → ``XvaBatcher`` (``device_spec``) → one epoch
+   through a ``Prefetcher`` with ``batch_to_device`` → one AMP step a
+   bucket's batch (128, 128, 96 and 64 items) at full width. Then cached
+   items against the CPU, speaker embeddings against the CPU, and a host
+   spectrogram batch against the ``device_spec`` one. Each stage's wall
+   time, the build's rates, split and host share, collate and wait times,
+   each step's time and peak memory.
 
-Phases 4-6 are the serving path and phase 12's timed steps the training
-path: the launch counts are set to 0 just before each and read just after
-it. Every comparison runs with TF32 off. Then come the line of kernels, the
-card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any
-failure exits non-zero before those lines. Needs one CUDA device; imports no
-JAX.
+Phases 4-6 are the serving path, phase 13's path the data path and phase
+12's timed steps the training path: the launch counts are set to 0 just
+before each and read just after it. Every comparison runs with TF32 off.
+Then come the line of kernels, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
+lines. Needs one CUDA device; imports no JAX.
 """
 from __future__ import annotations
 
@@ -200,12 +212,14 @@ def rfft_reference(y: torch.Tensor, cfg, center, mag_eps: float):
     return (mel[0], mag[0]) if y.dim() == 1 else (mel, mag)
 
 
-def profiled(fn):
+def profiled(fn, named=()):
     """Run ``fn`` once under ``torch.profiler``. Returns its result and the
     wall ms, the device busy ms (the union of kernel intervals), the host
-    share of the wall time, the kernel count and the eight kernels that took
-    the most device time ([name, ms, launches]). A profiler that does not
-    start is reported, not failed; a failure of ``fn`` fails the run."""
+    share of the wall time, the kernel count, the eight kernels that took
+    the most device time ([name, ms, launches]) and, for each substring in
+    ``named``, the device ms and launches of the kernels whose name holds it.
+    A profiler that does not start is reported, not failed; a failure of
+    ``fn`` fails the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -238,9 +252,12 @@ def profiled(fn):
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    picked = {s: [sum(t for k, (t, _) in by_name.items() if s in k) / 1e3,
+                  sum(n for k, (_, n) in by_name.items() if s in k)] for s in named}
     return out, {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
                  "host_share": 1.0 - busy_us / 1e3 / wall_ms, "kernels": len(spans),
-                 "top_kernels": [[k[:90], t / 1e3, n] for k, (t, n) in top]}
+                 "top_kernels": [[k[:90], t / 1e3, n] for k, (t, n) in top],
+                 "named_kernels": picked}
 
 
 def seeded_model(cfg, seed: int):
@@ -620,6 +637,366 @@ def train_phases(cfg, dev):
     return launches, record
 
 
+V3_BUCKETS = [(64, 256), (96, 384), (128, 512), (192, 768)]  # (text_len, mel_len)
+CLIPS_PER_BUCKET = 64
+
+
+def write_v3_dataset(path: str, rng: np.random.Generator) -> list:
+    """A seeded English fine-tune dataset in the layout users give the
+    trainer: ``wavs/*.wav`` (16-bit, 22 050 Hz) and ``metadata.csv``. 64
+    voiced clips in each v3 bucket's frame range at hop 256 (44-256,
+    257-384, 385-512 and 513-768 frames: (0.5, 2.97], (2.97, 4.46],
+    (4.46, 5.94] and (5.94, 8.9] s), each with English text whose v3 tokens
+    fit its bucket's text length. Returns [(name, frames, text)]."""
+    from xva_trainer_tpu_torch.data.audio_io import save_wav
+    from xva_trainer_tpu_torch.data.text import v3_text_to_ids
+
+    to_ids = v3_text_to_ids("en")
+    os.makedirs(os.path.join(path, "wavs"))
+    items, prev = [], 43
+    for text_len, mel_len in V3_BUCKETS:
+        for frames in rng.integers(prev + 1, mel_len + 1, CLIPS_PER_BUCKET):
+            name = f"clip{len(items):03d}"
+            save_wav(os.path.join(path, "wavs", name + ".wav"),
+                     voiced_clip(rng, (frames * HOP + 0.5) / SR))
+            words = list(rng.choice(WORDS, size=max(2, int(frames) // 18)))
+            while len(to_ids(" ".join(words))) > text_len:
+                words.pop()
+            items.append((name, int(frames), " ".join(words)))
+        prev = mel_len
+    with open(os.path.join(path, "metadata.csv"), "w", encoding="utf-8") as f:
+        f.write("".join(f"{n}.wav|{t}\n" for n, _, t in items))
+    return items
+
+
+LOG_FLOOR = 0.1  # the magnitude above which the log values' max is held
+
+
+def cache_vs_cpu(cache, ds: str, picks: list) -> dict:
+    """Cached items against the port's plain path on the CPU, from the files:
+    each pick's postprocessed wav decoded and featurized again by
+    ``featurize_batch(device="cpu")`` (the fused kernel's plain version), its
+    text tokenized again. Returns the comparison and checks the bars: the
+    log-compressed linear spectrogram within 1e-3 mean abs, and within 1e-3
+    max abs on the bins whose float64 magnitude is at least LOG_FLOOR; the
+    linear magnitude within 1e-3 max abs; energy within 1e-3 of its max
+    abs; pitch voiced alike on more than 95% of frames and within 2% in Hz
+    on 95% of the frames both call voiced; tokens, wav and lang_id equal.
+
+    The fp32 rounding of a bin is absolute (about 2e-5 at these clips'
+    level), so its log error is about 2e-5/|X|: at most 2e-4 above the
+    floor, and toward the 1e-5 clamp it grows whatever computes it. So the
+    plain version's own max error of the log values against a float64 FFT
+    is printed too, over all bins and above the floor."""
+    from xva_trainer_tpu_torch.data.audio_io import load_wav
+    from xva_trainer_tpu_torch.data.text import v3_text_to_ids
+    from xva_trainer_tpu_torch.data.xva_dataset import (XVASPEECH_PITCH_MEAN,
+                                                        XVASPEECH_PITCH_STD, lang_to_id)
+    from xva_trainer_tpu_torch.ops.features import featurize_batch
+    from xva_trainer_tpu_torch.ops.stft import DEFAULT_MEL
+
+    to_ids = v3_text_to_ids("en")
+    by_id = {it.item_id: it for it in cache.items}
+    waves = []
+    for name, _, _ in picks:
+        y, _ = load_wav(os.path.join(ds, "wavs_postprocessed", name + ".wav"), target_sr=SR)
+        waves.append(y[: len(y) // HOP * HOP])
+    ref = featurize_batch(waves, mode="linear", device="cpu")
+    rows = []
+    for (name, frames, text), y, r in zip(picks, waves, ref):
+        d = cache.load_item(by_id[name])
+        la = np.log(np.maximum(d["linear"], 1e-5))
+        lb = np.log(np.maximum(r["linear"], 1e-5))
+        _, f64 = rfft_reference(torch.from_numpy(y), DEFAULT_MEL, True, 0.0)
+        m64 = f64.numpy()[:, : len(y) // HOP]
+        l64 = np.log(np.maximum(m64, 1e-5))
+        strong = m64 >= LOG_FLOOR
+        pa = d["pitch"]
+        pb = np.where(r["pitch"] > 0, (r["pitch"] - XVASPEECH_PITCH_MEAN) / XVASPEECH_PITCH_STD,
+                      0.0).astype(np.float32)
+        va, vb = pa != 0, pb != 0
+        both = va & vb
+        hz_a = pa[both] * XVASPEECH_PITCH_STD + XVASPEECH_PITCH_MEAN
+        hz_b = pb[both] * XVASPEECH_PITCH_STD + XVASPEECH_PITCH_MEAN
+        rows.append({
+            "item": name, "frames": frames, "shape": list(d["linear"].shape),
+            "log_linear_mean_abs_err": float(np.abs(la - lb).mean()),
+            "log_linear_max_abs_err": float(np.abs(la - lb).max()),
+            "plain_vs_f64_log_linear_max_abs_err": float(np.abs(lb - l64).max()),
+            "log_linear_above_floor_max_abs_err": float(np.abs(la - lb)[strong].max()),
+            "plain_vs_f64_log_linear_above_floor_max_abs_err":
+                float(np.abs(lb - l64)[strong].max()),
+            "share_of_bins_above_floor": float(strong.mean()),
+            "linear_max_abs_err": float(np.abs(d["linear"] - r["linear"]).max()),
+            "energy_max_rel_err": float(np.abs(d["energy"] - r["energy"]).max()
+                                        / np.abs(r["energy"]).max()),
+            "voicing_agreement": float((va == vb).mean()), "voiced_frames": int(both.sum()),
+            "f0_p95_rel_err": float(np.percentile(np.abs(hz_a - hz_b) / hz_b, 95))
+            if both.any() else 0.0,
+            "tokens_equal": bool(np.array_equal(d["tokens"], np.asarray(to_ids(text), np.int32))),
+            "wav_equal": bool(np.array_equal(d["wav"], y)),
+            "lang_id_equal": int(np.asarray(d["lang_id"]).reshape(-1)[0]) == lang_to_id("en")})
+    worst = {k: max(r[k] for r in rows) for k in rows[0] if k.endswith("_err")}
+    worst["voicing_agreement"] = min(r["voicing_agreement"] for r in rows)
+    worst["share_of_bins_above_floor"] = min(r["share_of_bins_above_floor"] for r in rows)
+    check(all(r["shape"] == [513, r["frames"]] and r["tokens_equal"] and r["wav_equal"]
+              and r["lang_id_equal"] and r["voiced_frames"] > 0 for r in rows)
+          and worst["log_linear_mean_abs_err"] < TOL and worst["linear_max_abs_err"] < TOL
+          and worst["log_linear_above_floor_max_abs_err"] < TOL
+          and worst["energy_max_rel_err"] < TOL and worst["voicing_agreement"] > 0.95
+          and worst["f0_p95_rel_err"] < 0.02,
+          f"data: cached items against the CPU: {worst}, {rows}")
+    return {"items": rows, "worst": worst}
+
+
+QUANT_SLACK = 1e-4  # both sides' fp32 rounding: 5x the kernel's max against its plain version
+
+
+def device_spec_vs_host(host: dict, dspec: dict, dev) -> dict:
+    """``materialize_spec``'s spectrogram of a ``device_spec`` batch against
+    the cached one that a host batch of the same items passes through, on the
+    frames below ``slens - 1`` (the JAX package's
+    ``tests/test_device_spec.py::test_device_spec_matches_host_linear``).
+
+    The two differ by their audio alone, and not by noise: the cached wav is
+    the file's k/32768, the ``device_spec`` batch's round(k·32767/32768)/32767
+    (``collate`` and ``materialize_spec``, as in the JAX package), so a bin
+    moves by up to about |X|/32767. A bin of frame f moves by at most
+    sum_n w[n]·|Δy[f·hop + n]| (w the window, Δy the difference of the two
+    audios), a bound computed here from the batch itself. The bars: the mean
+    abs difference under TOL, and no bin more than QUANT_SLACK over its
+    frame's bound. Two wrong spectrograms are read against the same bars and
+    must miss them: the ``device_spec`` one two frames off (what
+    ``center=False`` gives) and one of the audio rounded to bf16."""
+    from xva_trainer_tpu_torch.ops.stft import frame_signal, hann_window, pad_reflect
+    from xva_trainer_tpu_torch.train.xvapitch_trainer import materialize_spec
+
+    lin_h, wav_h = materialize_spec(host)
+    lin_d, wav_d = materialize_spec(dspec)
+    frames = lin_h.shape[-1]
+    keep = torch.arange(frames, device=dev)[None, :] < (host["slens"][:, None] - 1)
+    win = torch.from_numpy(hann_window(1024, 1024)).to(dev)
+    dy = (wav_h - wav_d)[:, 0].abs()
+    bound = (frame_signal(pad_reflect(dy, 512), 1024, HOP, frames) * win).sum(-1)  # (B, F)
+
+    def read(lin):
+        d = (lin - lin_h).abs()
+        over = (d - bound[:, None, :]).transpose(1, 2)[keep]
+        d = d.transpose(1, 2)[keep]
+        r = {"mean_abs_err": float(d.mean()), "max_abs_err": float(d.max()),
+             "max_over_bound": float(over.max())}
+        r["passes"] = r["mean_abs_err"] < TOL and r["max_over_bound"] < QUANT_SLACK
+        return r
+
+    shifted = torch.cat([lin_d[..., 2:], lin_d[..., -2:]], -1)
+    bf16, _ = materialize_spec({"wav": wav_d.transpose(1, 2).bfloat16()})
+    return {"batch": list(lin_h.shape), "frames_compared": int(keep.sum()),
+            "host_linear_max": float(lin_h.max()),
+            "host_linear_max_over_32767": float(lin_h.max()) / 32767,
+            "bound_max": float(bound.max()), "slack": QUANT_SLACK, **read(lin_d),
+            "controls": {"two_frames_off": read(shifted), "bf16_audio": read(bf16)}}
+
+
+def data_phase(cfg, dev, smi: str):
+    """Phase 13, ``data``: the v3 data path, from a dataset on disk to the
+    training step, through the entry points in the order the JAX server's
+    v3 flow runs them (``app/server.py``): ``preprocess_audio`` →
+    ``extract_speaker_embeddings`` (the encoder at full width, seeded) →
+    ``XvaFeatureCache.build`` → ``get_dataset_embedding`` → ``XvaBatcher``
+    (``device_spec``) → one epoch through a ``Prefetcher`` with
+    ``batch_to_device`` → one AMP ``make_v3_step`` step a batch, one batch a
+    bucket, at full width with the VITS discriminator. The launch counts are
+    set to 0 before the path and read after its last step. Then the checks
+    that read the card again: cached items against the CPU, speaker
+    embeddings against the CPU, a host-spectrogram batch against the
+    ``device_spec`` one. Returns the path's launch counts and the record."""
+    import tempfile
+
+    from xva_trainer_tpu_torch.data.audio_io import load_wav, resample
+    from xva_trainer_tpu_torch.data.prefetch import Prefetcher
+    from xva_trainer_tpu_torch.data.text import v3_text_to_ids
+    from xva_trainer_tpu_torch.data.xva_dataset import (XvaBatcher, XvaFeatureCache,
+                                                        extract_speaker_embeddings,
+                                                        get_dataset_embedding)
+    from xva_trainer_tpu_torch.models.speaker_encoder import SpeakerEncoder
+    from xva_trainer_tpu_torch.ops import _cuda
+    from xva_trainer_tpu_torch.train.xvapitch_trainer import (XvaTrainConfig, batch_to_device,
+                                                              make_optimizers, make_v3_step,
+                                                              preprocess_audio)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        ds = os.path.join(work, "en_voice")
+        t0 = time.perf_counter()
+        specs = write_v3_dataset(ds, np.random.default_rng(30))
+        audio_s = sum(f for _, f, _ in specs) * HOP / SR
+        stages = {"write_dataset (set-up)": time.perf_counter() - t0}
+        tcfg = XvaTrainConfig()
+        model = seeded_model(cfg, 10).to(dev).train()
+        disc = seeded_disc(11).to(dev).train()
+        g_opt, d_opt = make_optimizers(model, disc, tcfg)
+        step = make_v3_step(model, disc, g_opt, d_opt, freeze_post_dec=False,
+                            use_amp=tcfg.use_amp)
+        gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
+
+        t0 = time.perf_counter()
+        enc = SpeakerEncoder(seed=0, device=dev)
+        torch.cuda.synchronize()
+        stages["speaker_encoder_build (set-up)"] = time.perf_counter() - t0
+
+        # ---- the data path ----
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        n_pre = preprocess_audio(ds)
+        stages["preprocess_audio"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_emb = extract_speaker_embeddings(ds, enc, use_postprocessed=True)
+        torch.cuda.synchronize()
+        stages["extract_speaker_embeddings"] = time.perf_counter() - t0
+        check(n_pre == n_emb == len(specs),
+              f"data: {n_pre} postprocessed wavs and {n_emb} speaker embeddings of "
+              f"{len(specs)} items (an item was skipped)")
+        cache = XvaFeatureCache(ds, v3_text_to_ids("en"), lang="en", device=dev)
+        before = _cuda.LAUNCHES["fused_stft"]
+        _, build_prof = profiled(cache.build, named=("fused_stft_kernel",))
+        build_launches = _cuda.LAUNCHES["fused_stft"] - before
+        build_s = build_prof["wall_ms"] / 1e3
+        stages["cache_build"] = build_s
+        with open(os.path.join(cache.cache_dir, ".mel_variant"), encoding="utf8") as f:
+            variant = f.read()
+        cached = [it for it in cache.items if cache.load_item(it) is not None]
+        healed = os.path.exists(os.path.join(cache.cache_dir, "corrupt_wavs.txt"))
+        # one DECODE_CHUNK; featurize groups of <= 8 clips by length, each in a
+        # (clips, slot + n_fft) buffer with slots a multiple of 32 768 samples
+        lens = sorted(f * HOP for _, f, _ in specs)
+        group_shapes = [(len(g), -(-max(g) // 32768) * 32768 + 1024)
+                        for g in (lens[i: i + 8] for i in range(0, len(lens), 8))]
+        groups = len(group_shapes)
+        check(len(cache.items) == len(cached) == len(specs) and not healed
+              and variant == "pallas" and build_launches == groups,
+              f"data: {len(cached)} of {len(specs)} items cached, healed {healed}, variant "
+              f"{variant}, {build_launches} fused_stft launches for {groups} groups")
+        t0 = time.perf_counter()
+        emb = get_dataset_embedding(ds, enc)
+        stages["get_dataset_embedding"] = time.perf_counter() - t0
+        check(emb["main"].shape == (512,) and emb["others"].shape == (9, 512)
+              and np.isfinite(emb["main"]).all() and np.isfinite(emb["others"]).all(),
+              f"data: dataset embedding {emb['main'].shape}, others {emb['others'].shape}")
+        batcher = XvaBatcher([cache], batch_size=tcfg.batch_size, d_vector=emb["main"])
+        batcher.device_spec = True
+
+        collate_ms, transfer_ms = [], []
+
+        def timed_epoch():
+            batches = batcher.epoch()
+            while True:
+                t = time.perf_counter()
+                b = next(batches, None)
+                if b is None:
+                    return
+                collate_ms.append((time.perf_counter() - t) * 1e3)
+                yield b
+
+        def transfer(b):
+            t = time.perf_counter()
+            out = batch_to_device(b, dev), b["ids"]
+            transfer_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        steps = []
+        t_epoch = time.perf_counter()
+        pf = Prefetcher(timed_epoch(), transfer)
+        try:
+            stream = iter(pf)
+            while True:
+                t = time.perf_counter()
+                nxt = next(stream, None)
+                if nxt is None:
+                    break
+                waited = time.perf_counter() - t
+                batch, ids = nxt
+                counts = dict(_cuda.LAUNCHES)
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                meta = step(batch, gen)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                losses = {k: v.float().cpu().tolist() for k, v in meta.items()}
+                launched = {k: _cuda.LAUNCHES[k] - counts[k] for k in counts}
+                finite = all(np.isfinite(np.asarray(v, np.float64)).all()
+                             for v in losses.values())
+                steps.append({"bucket": [int(batch["tokens"].shape[1]),
+                                         int(batch["pitch"].shape[-1])],
+                              "batch": int(batch["tokens"].shape[0]),
+                              "unique_items": len(set(ids)),
+                              "mel_frames": int(batch["slens"].sum()),
+                              "wait_ms": waited * 1e3, "step_ms": ms,
+                              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                              "launches": launched, "all_losses_finite": finite,
+                              "losses": losses})
+                check(finite and launched["fused_stft"] == 2 and launched["mas"] == 1,
+                      f"data: step {steps[-1]}")
+        finally:
+            pf.close()
+        stages["epoch (collate, transfer, 4 steps)"] = time.perf_counter() - t_epoch
+        launches = dict(_cuda.LAUNCHES)  # the end of the data path
+        by_bucket = sorted((s["bucket"], s["batch"], s["unique_items"]) for s in steps)
+        want = [([t, m], int(round(tcfg.batch_size * min(768 / m, 2.0))), CLIPS_PER_BUCKET)
+                for t, m in V3_BUCKETS]  # 128, 128, 96, 64: MAX_BUCKET_SCALE = 2
+        check(by_bucket == want, f"data: batches {by_bucket}, expected {want}")
+        del model, disc, g_opt, d_opt, step, batch, meta
+        torch.cuda.empty_cache()
+
+        # ---- checks that read the card's results again ----
+        picks = [specs[i] for b in range(len(V3_BUCKETS))
+                 for i in (b * CLIPS_PER_BUCKET, b * CLIPS_PER_BUCKET + 1)]
+        items_vs_cpu = cache_vs_cpu(cache, ds, picks)
+        enc_cpu = SpeakerEncoder(seed=0, device="cpu")
+        emb_l1 = []
+        for name, _, _ in picks[::2]:
+            y, sr = load_wav(os.path.join(ds, "wavs_postprocessed", name + ".wav"))
+            e_cpu = enc_cpu.compute_embedding(resample(y, sr, 16000))
+            e_card = np.load(os.path.join(ds, "se_embs", name + ".npy"))
+            emb_l1.append(float(np.abs(e_cpu - e_card).sum()))
+        check(max(emb_l1) < TOL, f"data: speaker embeddings card vs CPU, L1 {emb_l1}")
+        pair = []
+        for spec_on in (False, True):  # the same seed: the same batches
+            b = XvaBatcher([cache], batch_size=tcfg.batch_size, d_vector=emb["main"], seed=1)
+            b.device_spec = spec_on
+            pair.append(next(x for x in b.epoch() if x["pitch"].shape[-1] == V3_BUCKETS[0][1]))
+        spec_cmp = device_spec_vs_host(*(batch_to_device(x, dev) for x in pair), dev)
+        spec_cmp["ids_equal"] = pair[0]["ids"] == pair[1]["ids"]
+        check(spec_cmp["ids_equal"] and spec_cmp["passes"]
+              and not any(c["passes"] for c in spec_cmp["controls"].values()),
+              f"data: host linear against device_spec's: {spec_cmp}")
+        kernel = build_prof.get("named_kernels")
+        record = {
+            "items": len(specs), "audio_seconds": audio_s, "gpu": smi, "stage_seconds": stages,
+            "cache_build": {
+                "seconds": build_s, "items_per_s": len(specs) / build_s,
+                "audio_seconds_per_s": audio_s / build_s, "variant": variant,
+                "featurize_groups": groups, "group_shapes": group_shapes,
+                "fused_stft_launches": build_launches,
+                "fused_stft_device_ms": kernel["fused_stft_kernel"][0] if kernel else None,
+                "device_busy_ms": build_prof.get("device_busy_ms"),
+                "host_share": build_prof.get("host_share"),
+                "stage_seconds": cache.build_seconds, "profile": build_prof,
+                "cache_mbytes": sum(os.path.getsize(os.path.join(cache.cache_dir, f))
+                                    for f in os.listdir(cache.cache_dir)
+                                    if f.endswith(".npz")) / 1e6,
+                "pack_mbytes": os.path.getsize(os.path.join(cache.cache_dir, "packed.bin"))
+                / 1e6},
+            "speaker_encoder_items_per_s": len(specs) / stages["extract_speaker_embeddings"],
+            "collate_ms": collate_ms, "transfer_ms": transfer_ms, "steps": steps,
+            "launches": launches, "items_vs_cpu": items_vs_cpu,
+            "speaker_embedding_l1_vs_cpu": emb_l1, "host_linear_vs_device_spec": spec_cmp,
+            "tf32": False}
+        emit("data", **record)
+        return launches, record
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -948,19 +1325,27 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     del model, model_cpu
 
+    data_launches, data = data_phase(cfg_m, dev, smi)
+    build = data["cache_build"]
+    # the least time for the build's 32 launches: each group's bound, summed
+    build["fused_stft_bound_ms"] = sum(bound(gB, gT, 1 + (gT - n) // cfg.hop_length)[2]
+                                       for gB, gT in build["group_shapes"])
     train_launches, train = train_phases(cfg_m, dev)
-    by_path = {"serve": launches, "train": train_launches}
+    by_path = {"serve": launches, "data": data_launches, "train": train_launches}
 
     kernels = [{
         "name": "fused_stft", "route": "cuda",
         "source": "xva_trainer_tpu_torch/csrc/fused_stft.cu",
         "replaces": "xva_trainer_tpu/ops/pallas_stft.py:127",
-        "launches": train_launches["fused_stft"], "max_abs_err": max_err, "ms": tb["ms"],
+        "launches": data_launches["fused_stft"], "max_abs_err": max_err, "ms": tb["ms"],
         "plain_ms": tb["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": tb["library_ms"], "device_ms": tb["device_ms"],
         "plain_device_ms": tb["plain_device_ms"], "library_device_ms": tb["library_device_ms"],
         "launches_by_path": {p: c["fused_stft"] for p, c in by_path.items()},
         "launches_per_train_step": train_launches["fused_stft"] / train["timed_steps"],
+        "cache_build": {k: build[k] for k in ("fused_stft_launches", "featurize_groups",
+                                              "fused_stft_device_ms", "fused_stft_bound_ms",
+                                              "seconds")},
         "train_step_shapes": {k: {m: v[m] for m in ("shape", "linear", "ms", "device_ms",
                                                     "plain_ms", "plain_device_ms",
                                                     "library_ms", "library_device_ms",
@@ -970,7 +1355,7 @@ def main() -> int:
     }, {
         "name": "mas", "route": "cuda", "source": "xva_trainer_tpu_torch/csrc/mas.cu",
         "replaces": "xva_trainer_tpu/ops/mas.py:30",  # lax.scan code, not Pallas
-        "launches": train_launches["mas"], "max_abs_err": 0.0, "path_mismatches": mas_mismatch,
+        "launches": data_launches["mas"], "max_abs_err": 0.0, "path_mismatches": mas_mismatch,
         "ms": mas_timing["ms"], "plain_ms": mas_timing["plain_ms"],
         "bound_ms": trainer_bound["bound_ms"], "bound_by": trainer_bound["bound_by"],
         "library_ms": None, "device_ms": mas_timing["device_ms"],
@@ -984,8 +1369,9 @@ def main() -> int:
         "launches_per_train_step": train_launches["mas"] / train["timed_steps"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
-    # each path's kernels: fused_stft on both, mas on the training step, every step
+    # each path's kernels: fused_stft on all, mas on the training steps, every step
     missing = [p + ":" + k for p, ks in (("serve", ["fused_stft"]),
+                                         ("data", ["fused_stft", "mas"]),
                                          ("train", ["fused_stft", "mas"]))
                for k in ks if by_path[p][k] < 1]
     check(not missing, f"a main path launched no {missing}")

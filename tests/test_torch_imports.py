@@ -1,5 +1,6 @@
 """Import hygiene of the PyTorch port: it imports torch, numpy and scipy, and
-never JAX or anything of the JAX package ``xva_trainer_tpu``."""
+never JAX, anything of the JAX package ``xva_trainer_tpu``, or scikit-learn
+(which the card's machine does not have)."""
 import ast
 import json
 import os
@@ -12,7 +13,7 @@ import pytest
 import xva_trainer_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "xva_trainer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "xva_trainer_tpu", "sklearn")
 SOURCES = ["chip_smoke.py"] + sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, files in os.walk(os.path.join(REPO, "xva_trainer_tpu_torch"))
@@ -27,13 +28,14 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     """Import every module of the port, and chip_smoke, in a fresh
-    interpreter: no JAX module and no module of the JAX package is loaded."""
+    interpreter: no JAX module, no module of the JAX package and no
+    scikit-learn is loaded."""
     mods = _port_modules() + ["chip_smoke"]
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.startswith(('jax', 'flax', 'optax', "
-        "'orbax')) or k == 'xva_trainer_tpu' or k.startswith('xva_trainer_tpu.'))\n"
+        "'orbax', 'sklearn')) or k == 'xva_trainer_tpu' or k.startswith('xva_trainer_tpu.'))\n"
         "print(json.dumps(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -45,8 +47,8 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("path", SOURCES)
 def test_port_sources_name_no_jax(path):
-    """No import statement in the port's sources or chip_smoke.py names JAX or
-    the JAX package, at any depth of the file."""
+    """No import statement in the port's sources or chip_smoke.py names JAX,
+    the JAX package or scikit-learn, at any depth of the file."""
     with open(os.path.join(REPO, path), encoding="utf-8") as f:
         tree = ast.parse(f.read())
     for node in ast.walk(tree):

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the fused STFT kernel within 1e-3, the MAS kernel with identical paths.
+the fused STFT kernel within 1e-3, the MAS kernel with identical paths, and
+a v3 feature cache built on the card against the same cache built on the
+CPU.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skips elsewhere. Run on the card
 (``--noconftest``: tests/conftest.py imports JAX, which the card's machine
@@ -130,6 +132,60 @@ def test_kernel_rejects_other_n_fft(cuda):
     y = _bucket(cuda, B=1, T=8192)
     with pytest.raises(ValueError, match="n_fft"):
         fs.mel_spectrogram_fused(y, MelConfig(n_fft=512, win_length=512, hop_length=128))
+
+
+def _voiced_dataset(path, n=10, seed=0):
+    """``n`` voiced clips of 0.6-3.5 s in the trainer's dataset layout."""
+    from xva_trainer_tpu_torch.data.audio_io import save_wav
+
+    rng = np.random.default_rng(seed)
+    (path / "wavs").mkdir(parents=True)
+    lines = []
+    for i, sec in enumerate(np.linspace(0.6, 3.5, n)):
+        t = np.arange(int(sec * 22050)) / 22050
+        ph = 2 * np.pi * np.cumsum(rng.uniform(100, 220) * (1 + 0.1 * np.sin(2 * t))) / 22050
+        y = sum(np.sin(k * ph) / k for k in range(1, 8)) * 0.3
+        save_wav(str(path / "wavs" / f"c{i}.wav"), y + 0.01 * rng.standard_normal(len(t)))
+        lines.append(f"c{i}.wav|clip number {i}")
+    (path / "metadata.csv").write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def test_cache_build_on_card_matches_cpu(cuda, tmp_path):
+    """A v3 feature cache built on the card (the fused kernel, one launch a
+    group of at most 8 clips) against the same cache built on the CPU (the
+    kernel's plain version): the log-compressed linear spectrogram within
+    1e-3 mean abs and within 1e-3 max abs on the bins of magnitude 0.1 and
+    more (below, fp32 rounding alone moves the log toward the 1e-5 clamp),
+    the magnitude within 1e-3 max abs, energy within 1e-3 of
+    its max abs, pitch voiced alike on more than 95% of frames and within 2%
+    on 95% of the frames both call voiced, tokens, wav and lang_id equal."""
+    from xva_trainer_tpu_torch.data.text import v3_text_to_ids
+    from xva_trainer_tpu_torch.data.xva_dataset import XvaFeatureCache
+
+    caches = {}
+    for dev in ("cuda", "cpu"):
+        ds = _voiced_dataset(tmp_path / dev)
+        before = _cuda.LAUNCHES["fused_stft"]
+        caches[dev] = XvaFeatureCache(ds, v3_text_to_ids("en"), device=dev)
+        caches[dev].build()
+        launched = _cuda.LAUNCHES["fused_stft"] - before
+        assert launched == (2 if dev == "cuda" else 0)
+    for it_a, it_b in zip(caches["cuda"].items, caches["cpu"].items):
+        a, b = caches["cuda"].load_item(it_a), caches["cpu"].load_item(it_b)
+        assert a["linear"].shape == b["linear"].shape
+        la, lb = (np.log(np.maximum(x["linear"], 1e-5)) for x in (a, b))
+        assert np.abs(la - lb).mean() < TOL
+        assert np.abs(la - lb)[b["linear"] >= 0.1].max() < TOL
+        assert np.abs(a["linear"] - b["linear"]).max() < TOL
+        assert np.abs(a["energy"] - b["energy"]).max() < TOL * np.abs(b["energy"]).max()
+        va, vb = a["pitch"] != 0, b["pitch"] != 0
+        assert (va == vb).mean() > 0.95
+        both = va & vb
+        hz_a, hz_b = (x["pitch"][both] * 123.4384 + 104.606 for x in (a, b))
+        assert np.percentile(np.abs(hz_a - hz_b) / hz_b, 95) < 0.02
+        for k in ("tokens", "wav", "lang_id"):
+            np.testing.assert_array_equal(a[k], b[k])
 
 
 # ---------------- MAS ----------------

@@ -187,12 +187,15 @@ def jax_forward(g_params, d_params, b, key=KEY, hifi_only=False):
 def draws_of(out, b, sdp_noise=None):
     """The port's draws that reproduce a JAX train_step: the posterior's noise
     (z - m_q)·exp(-logs_q), the SDP's recorded noise, and a segment draw u
-    whose start floor(u·(max_start+1)) is the one found in waveform_seg."""
+    whose start floor(u·(max_start+1)) is the one found in waveform_seg (of
+    int16 or float audio)."""
     def cf(a):
         return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32).transpose(0, 2, 1)))
 
     draws = {"noise": cf((out["z"] - out["m_q"]) * np.exp(-out["logs_q"]))}
-    wav = b["wav"][..., 0].astype(np.float32) * np.float32(1.0 / 32767.0)
+    wav = b["wav"][..., 0].astype(np.float32)
+    if b["wav"].dtype == np.int16:  # dequantised as the step does
+        wav = wav * np.float32(1.0 / 32767.0)
     seg = np.asarray(out["waveform_seg"])[..., 0]
     u = []
     for i in range(B):

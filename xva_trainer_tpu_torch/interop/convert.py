@@ -86,3 +86,16 @@ def ups_to_reference(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The inverse of ``ups_from_reference``: the port's state dict → the
     reference's layout, for writing a ``.pt`` that xVASynth loads."""
     return _renorm(sd, 1, 0)
+
+
+def speaker_encoder_state_dict(jax_variables_as_numpy: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX ``ResNetSpeakerEncoder``'s variables (``params`` and
+    ``batch_stats``, numpy) → the state dict that loads the port's
+    ``ResNetSpeakerEncoder`` with ``strict=True``: the rules' entries and each
+    BatchNorm's ``num_batches_tracked`` at 0, as a fresh torch module has it."""
+    from .speaker_map import batch_norm_prefixes, speaker_encoder_rules
+
+    sd = _tensors(apply_carry(jax_variables_as_numpy, speaker_encoder_rules()))
+    for p in batch_norm_prefixes():
+        sd[p + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd

@@ -1,10 +1,10 @@
-"""The v3 (xVAPitch) training step.
+"""The v3 (xVAPitch) training step and what feeds it.
 
 Counterpart of ``xva_trainer_tpu/train/xvapitch_trainer.py``: the config
-fields the step reads, the early-stop targets, the on-device spectrogram,
-the freeze helpers, ``make_v3_step`` and ``make_v3_loss_eval``. The trainer
-loop around them (feature cache, batcher, checkpoints, export) is not ported
-yet.
+fields the step reads, the early-stop targets, ``preprocess_audio``, the
+batch's transfer to the card and its spectrogram, the freeze helpers,
+``make_v3_step`` and ``make_v3_loss_eval``. The trainer loop around them
+(checkpoints, export) is not ported yet.
 
 The step is the reference's per-micro-step generator pass then
 discriminator pass (python/xvapitch/xva_train.py:652-706), in two passes:
@@ -14,23 +14,26 @@ therefore sees the pre-update D parameters, and the gradients are those of
 the JAX package's fused single-backward step (tests/test_fused_gd.py shows
 that the two formulations agree). ``torch.autograd.grad`` takes the G
 gradients with respect to the generator's parameters only, so no G-loss
-gradient ever reaches the discriminator's. The JAX step's ``fused_gd`` and
-``device_spec`` switches choose how XLA lays out one program; the port has
-one path: the spectrogram is always computed on the device, from int16
-audio, by the fused STFT kernel.
+gradient ever reaches the discriminator's. The JAX step's ``fused_gd``
+switch chooses how XLA lays out one program; the port has one path.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import os
 from typing import Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 
+from ..data.audio_io import load_wav, save_wav
 from ..models.xvapitch import VitsDiscriminator, XVAPitch
 from ..models.xvapitch import losses as v_losses
 from ..ops.fused_stft import mel_spectrogram_fused
+from ..ops.loudness import normalize_ebu_r128
 from ..ops.stft import DEFAULT_MEL
 from . import amp
 from .optim import GanOptimizer
@@ -117,15 +120,67 @@ def update_mask(model: nn.Module, *, freeze_post_dec: bool, hifi_only: bool) -> 
 def materialize_spec(batch: Dict[str, torch.Tensor], hop: int = 256):
     """(linear (B, 513, frames), waveform (B, 1, frames·hop) float) of a batch.
 
-    The batch ships int16 audio (B, frames·hop, 1), dequantised as /32767,
-    and no spectrogram: the fused STFT kernel computes its linear magnitude
-    on the device with ``center=True`` and frames [0, frames) are kept, as
-    the JAX step's ``_materialize_spec`` does."""
+    A host batch (``XvaBatcher`` without ``device_spec``) ships the cached
+    linear spectrogram as ``"linear"`` (B, frames, 513), which passes
+    through, transposed. A ``device_spec`` batch ships int16 audio
+    (B, frames·hop, 1), dequantised as /32767, and no spectrogram: the fused
+    STFT kernel computes its linear magnitude on the device with
+    ``center=True`` and frames [0, frames) are kept, as the JAX step's
+    ``_materialize_spec`` does."""
     wav = batch["wav"]
     wav = wav.float() * (1.0 / 32767.0) if wav.dtype == torch.int16 else wav.float()
+    if "linear" in batch:
+        return batch["linear"].transpose(1, 2), wav.transpose(1, 2)
     frames = wav.shape[1] // hop
     _, lin = mel_spectrogram_fused(wav[..., 0], DEFAULT_MEL, center=True, return_linear=True)
     return lin[:, :, :frames], wav.transpose(1, 2)
+
+
+def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """A collated numpy batch → tensors on ``device``: the one-card
+    counterpart of the JAX package's ``parallel/mesh.py::shard_batch``, and
+    like it the ``Prefetcher``'s transform, so it runs on the worker thread.
+
+    ``"ids"`` (names, for the loss sorting) stays behind; int32 index arrays
+    become int64. The copies start from pinned memory without blocking, on
+    the device's default stream, the stream the training step runs on: the
+    step queued after them waits for them, and the caching host allocator
+    does not hand a pinned buffer out again before its copy has finished."""
+    dev = torch.device(device)
+    out = {}
+    on_card = dev.type == "cuda"
+    with torch.cuda.stream(torch.cuda.default_stream(dev)) if on_card else contextlib.nullcontext():
+        for k, v in batch.items():
+            if k == "ids":
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if on_card:
+                t = t.pin_memory().to(dev, non_blocking=True)
+            out[k] = t.long() if t.dtype == torch.int32 else t
+    return out
+
+
+def preprocess_audio(dataset_path: str, progress=None) -> int:
+    """EBU R128 loudness normalisation of ``wavs/`` into
+    ``wavs_postprocessed/`` before training (reference xva_train.py
+    preprocess_audio:1368-1390, which runs the audio_norm tool). Files
+    already there are kept. Returns the number of wavs that have one."""
+    wav_dir = os.path.join(dataset_path, "wavs")
+    out_dir = os.path.join(dataset_path, "wavs_postprocessed")
+    os.makedirs(out_dir, exist_ok=True)
+    files = sorted(f for f in os.listdir(wav_dir) if f.endswith(".wav"))
+    done = 0
+    for i, f in enumerate(files):
+        dst = os.path.join(out_dir, f)
+        if os.path.exists(dst):
+            done += 1
+            continue
+        y, sr = load_wav(os.path.join(wav_dir, f))
+        save_wav(dst, normalize_ebu_r128(y, sr), sr)
+        done += 1
+        if progress:
+            progress(i + 1, len(files))
+    return done
 
 
 # ---------------- the step ----------------
