@@ -4,9 +4,10 @@
 
 Builds the port's CUDA kernels from ``xva_trainer_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the main paths' shapes,
-then drives the v3 serving path and the v3 training step through the entry
-points a user calls, at the full width of the shipped "big" xVAPitch
-(weights from a seed). Phases, one JSON line each:
+then drives the v3 serving path, the v3 data path, the v3 trainer loop and
+the v3 training step through the entry points a user calls, at the full
+width of the shipped "big" xVAPitch (weights from a seed). Phases, one JSON
+line each:
 
 1. ``device``: the card, as torch and ``nvidia-smi`` name it;
 2. ``kernels``: every hand-written kernel, built from source;
@@ -54,7 +55,7 @@ points a user calls, at the full width of the shipped "big" xVAPitch
 12. ``train_step``: the trainer's step as it runs (AMP, the AdamW pair with
    its 7-step accumulation, dropout on, draws from a CUDA generator) at
    B = 64 on the 192 x 768 bucket, or the largest batch that fits: 2 warm-up
-   and 5 timed steps, frames a second, peak memory, the host's share of one
+   and 3 timed steps, frames a second, peak memory, the host's share of one
    profiled step, every loss component, and each kernel's launches a step;
 13. ``data`` (run after phase 7, before phase 9): the v3 data path from a
    seeded dataset on disk (256 voiced clips, 64 in each v3 bucket, English
@@ -67,11 +68,29 @@ points a user calls, at the full width of the shipped "big" xVAPitch
    items against the CPU, speaker embeddings against the CPU, and a host
    spectrogram batch against the ``device_spec`` one. Each stage's wall
    time, the build's rates, split and host share, collate and wait times,
-   each step's time and peak memory.
+   each step's time and peak memory;
+14. ``train_loop`` (after phase 13, on its dataset, cache and embeddings):
+   ``XVAPitchTrainer`` at full width with the default config but a
+   checkpoint every update (AdamW, AMP, target batch 400, ``gam`` from the
+   batcher's mean batch), warm-started from phase 5's reference-layout
+   ``.pt`` (effective weights held to the file's); ``train(max_steps=3)``
+   with the loss-seeding pass; a second trainer resumed from the directory,
+   bit-identical to the first, taking a 4th update; the window of
+   checkpoints (2, 3, then 3, 4); the export, loaded strictly and served by
+   ``export_wav``; two previews; one more update under the profiler. Each
+   micro-step's ms by bucket, each update's seconds with and without its
+   checkpoint write, the meter's frames a second, the prefetch wait, each
+   checkpoint's seconds and bytes, the resume's and the export's, peak
+   memory (``train_loop_phase``);
+15. ``cache_build_shapes``: the fused STFT kernel, its plain version and
+   the ``torch.stft`` chain at the cache build's six slot lengths (8 clips,
+   33 792 to 197 632 samples, pre-padded, linear on), summed over the
+   build's 32 groups.
 
-Phases 4-6 are the serving path, phase 13's path the data path and phase
-12's timed steps the training path: the launch counts are set to 0 just
-before each and read just after it. Every comparison runs with TF32 off.
+Phases 4-6 are the serving path, phase 13's path the data path, phase 14's
+seeding pass and four updates the loop path, and phase 12's timed steps the
+training path: the launch counts are set to 0 just before each and read
+just after it. Every comparison runs with TF32 off.
 Then come the line of kernels, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
 lines. Needs one CUDA device; imports no JAX.
@@ -80,10 +99,12 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -591,7 +612,7 @@ def train_phases(cfg, dev):
         d_gpu.load_state_dict(old[1])
         g_gpu.train()
         d_gpu.train()
-        g_opt, d_opt = make_optimizers(g_gpu, d_gpu, tcfg)
+        g_opt, d_opt = make_optimizers(g_gpu, d_gpu, tcfg, tcfg.gam)
         step = make_v3_step(g_gpu, d_gpu, g_opt, d_opt, freeze_post_dec=False,
                             use_amp=tcfg.use_amp)
         gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
@@ -610,7 +631,7 @@ def train_phases(cfg, dev):
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
     times, metas = [], []
-    for _ in range(5):
+    for _ in range(3):
         t0 = time.perf_counter()
         meta = step(big, gen)
         torch.cuda.synchronize()
@@ -797,7 +818,7 @@ def device_spec_vs_host(host: dict, dspec: dict, dev) -> dict:
             "controls": {"two_frames_off": read(shifted), "bf16_audio": read(bf16)}}
 
 
-def data_phase(cfg, dev, smi: str):
+def data_phase(cfg, dev, smi: str, work: str):
     """Phase 13, ``data``: the v3 data path, from a dataset on disk to the
     training step, through the entry points in the order the JAX server's
     v3 flow runs them (``app/server.py``): ``preprocess_audio`` →
@@ -809,9 +830,9 @@ def data_phase(cfg, dev, smi: str):
     set to 0 before the path and read after its last step. Then the checks
     that read the card again: cached items against the CPU, speaker
     embeddings against the CPU, a host-spectrogram batch against the
-    ``device_spec`` one. Returns the path's launch counts and the record."""
-    import tempfile
-
+    ``device_spec`` one. The dataset, its cache and speaker embeddings stay
+    in ``work`` for the ``train_loop`` phase. Returns the path's launch
+    counts, the record and {"dataset", "cache", "emb"}."""
     from xva_trainer_tpu_torch.data.audio_io import load_wav, resample
     from xva_trainer_tpu_torch.data.prefetch import Prefetcher
     from xva_trainer_tpu_torch.data.text import v3_text_to_ids
@@ -824,177 +845,485 @@ def data_phase(cfg, dev, smi: str):
                                                               make_optimizers, make_v3_step,
                                                               preprocess_audio)
 
-    work = tempfile.mkdtemp(prefix="chip_smoke_data_")
-    try:
-        ds = os.path.join(work, "en_voice")
-        t0 = time.perf_counter()
-        specs = write_v3_dataset(ds, np.random.default_rng(30))
-        audio_s = sum(f for _, f, _ in specs) * HOP / SR
-        stages = {"write_dataset (set-up)": time.perf_counter() - t0}
-        tcfg = XvaTrainConfig()
-        model = seeded_model(cfg, 10).to(dev).train()
-        disc = seeded_disc(11).to(dev).train()
-        g_opt, d_opt = make_optimizers(model, disc, tcfg)
-        step = make_v3_step(model, disc, g_opt, d_opt, freeze_post_dec=False,
-                            use_amp=tcfg.use_amp)
-        gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
+    ds = os.path.join(work, "en_voice")
+    t0 = time.perf_counter()
+    specs = write_v3_dataset(ds, np.random.default_rng(30))
+    audio_s = sum(f for _, f, _ in specs) * HOP / SR
+    stages = {"write_dataset (set-up)": time.perf_counter() - t0}
+    tcfg = XvaTrainConfig()
+    model = seeded_model(cfg, 10).to(dev).train()
+    disc = seeded_disc(11).to(dev).train()
+    # the config's gam, ceil(400 / 64) = 7 (the loop's comes from its batcher)
+    g_opt, d_opt = make_optimizers(model, disc, tcfg, tcfg.gam)
+    step = make_v3_step(model, disc, g_opt, d_opt, freeze_post_dec=False,
+                        use_amp=tcfg.use_amp)
+    gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
 
-        t0 = time.perf_counter()
-        enc = SpeakerEncoder(seed=0, device=dev)
-        torch.cuda.synchronize()
-        stages["speaker_encoder_build (set-up)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = SpeakerEncoder(seed=0, device=dev)
+    torch.cuda.synchronize()
+    stages["speaker_encoder_build (set-up)"] = time.perf_counter() - t0
 
-        # ---- the data path ----
-        _cuda.reset_launch_counts()
-        t0 = time.perf_counter()
-        n_pre = preprocess_audio(ds)
-        stages["preprocess_audio"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        n_emb = extract_speaker_embeddings(ds, enc, use_postprocessed=True)
-        torch.cuda.synchronize()
-        stages["extract_speaker_embeddings"] = time.perf_counter() - t0
-        check(n_pre == n_emb == len(specs),
-              f"data: {n_pre} postprocessed wavs and {n_emb} speaker embeddings of "
-              f"{len(specs)} items (an item was skipped)")
-        cache = XvaFeatureCache(ds, v3_text_to_ids("en"), lang="en", device=dev)
-        before = _cuda.LAUNCHES["fused_stft"]
-        _, build_prof = profiled(cache.build, named=("fused_stft_kernel",))
-        build_launches = _cuda.LAUNCHES["fused_stft"] - before
-        build_s = build_prof["wall_ms"] / 1e3
-        stages["cache_build"] = build_s
-        with open(os.path.join(cache.cache_dir, ".mel_variant"), encoding="utf8") as f:
-            variant = f.read()
-        cached = [it for it in cache.items if cache.load_item(it) is not None]
-        healed = os.path.exists(os.path.join(cache.cache_dir, "corrupt_wavs.txt"))
-        # one DECODE_CHUNK; featurize groups of <= 8 clips by length, each in a
-        # (clips, slot + n_fft) buffer with slots a multiple of 32 768 samples
-        lens = sorted(f * HOP for _, f, _ in specs)
-        group_shapes = [(len(g), -(-max(g) // 32768) * 32768 + 1024)
-                        for g in (lens[i: i + 8] for i in range(0, len(lens), 8))]
-        groups = len(group_shapes)
-        check(len(cache.items) == len(cached) == len(specs) and not healed
-              and variant == "pallas" and build_launches == groups,
-              f"data: {len(cached)} of {len(specs)} items cached, healed {healed}, variant "
-              f"{variant}, {build_launches} fused_stft launches for {groups} groups")
-        t0 = time.perf_counter()
-        emb = get_dataset_embedding(ds, enc)
-        stages["get_dataset_embedding"] = time.perf_counter() - t0
-        check(emb["main"].shape == (512,) and emb["others"].shape == (9, 512)
-              and np.isfinite(emb["main"]).all() and np.isfinite(emb["others"]).all(),
-              f"data: dataset embedding {emb['main'].shape}, others {emb['others'].shape}")
-        batcher = XvaBatcher([cache], batch_size=tcfg.batch_size, d_vector=emb["main"])
-        batcher.device_spec = True
+    # ---- the data path ----
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    n_pre = preprocess_audio(ds)
+    stages["preprocess_audio"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_emb = extract_speaker_embeddings(ds, enc, use_postprocessed=True)
+    torch.cuda.synchronize()
+    stages["extract_speaker_embeddings"] = time.perf_counter() - t0
+    check(n_pre == n_emb == len(specs),
+          f"data: {n_pre} postprocessed wavs and {n_emb} speaker embeddings of "
+          f"{len(specs)} items (an item was skipped)")
+    cache = XvaFeatureCache(ds, v3_text_to_ids("en"), lang="en", device=dev)
+    before = _cuda.LAUNCHES["fused_stft"]
+    _, build_prof = profiled(cache.build, named=("fused_stft_kernel",))
+    build_launches = _cuda.LAUNCHES["fused_stft"] - before
+    build_s = build_prof["wall_ms"] / 1e3
+    stages["cache_build"] = build_s
+    with open(os.path.join(cache.cache_dir, ".mel_variant"), encoding="utf8") as f:
+        variant = f.read()
+    cached = [it for it in cache.items if cache.load_item(it) is not None]
+    healed = os.path.exists(os.path.join(cache.cache_dir, "corrupt_wavs.txt"))
+    # one DECODE_CHUNK; featurize groups of <= 8 clips by length, each in a
+    # (clips, slot + n_fft) buffer with slots a multiple of 32 768 samples
+    lens = sorted(f * HOP for _, f, _ in specs)
+    group_shapes = [(len(g), -(-max(g) // 32768) * 32768 + 1024)
+                    for g in (lens[i: i + 8] for i in range(0, len(lens), 8))]
+    groups = len(group_shapes)
+    check(len(cache.items) == len(cached) == len(specs) and not healed
+          and variant == "pallas" and build_launches == groups,
+          f"data: {len(cached)} of {len(specs)} items cached, healed {healed}, variant "
+          f"{variant}, {build_launches} fused_stft launches for {groups} groups")
+    t0 = time.perf_counter()
+    emb = get_dataset_embedding(ds, enc)
+    stages["get_dataset_embedding"] = time.perf_counter() - t0
+    check(emb["main"].shape == (512,) and emb["others"].shape == (9, 512)
+          and np.isfinite(emb["main"]).all() and np.isfinite(emb["others"]).all(),
+          f"data: dataset embedding {emb['main'].shape}, others {emb['others'].shape}")
+    batcher = XvaBatcher([cache], batch_size=tcfg.batch_size, d_vector=emb["main"])
+    batcher.device_spec = True
 
-        collate_ms, transfer_ms = [], []
+    collate_ms, transfer_ms = [], []
 
-        def timed_epoch():
-            batches = batcher.epoch()
-            while True:
-                t = time.perf_counter()
-                b = next(batches, None)
-                if b is None:
-                    return
-                collate_ms.append((time.perf_counter() - t) * 1e3)
-                yield b
-
-        def transfer(b):
+    def timed_epoch():
+        batches = batcher.epoch()
+        while True:
             t = time.perf_counter()
-            out = batch_to_device(b, dev), b["ids"]
-            transfer_ms.append((time.perf_counter() - t) * 1e3)
-            return out
+            b = next(batches, None)
+            if b is None:
+                return
+            collate_ms.append((time.perf_counter() - t) * 1e3)
+            yield b
 
-        steps = []
-        t_epoch = time.perf_counter()
-        pf = Prefetcher(timed_epoch(), transfer)
-        try:
-            stream = iter(pf)
+    def transfer(b):
+        t = time.perf_counter()
+        out = batch_to_device(b, dev), b["ids"]
+        transfer_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    steps = []
+    t_epoch = time.perf_counter()
+    pf = Prefetcher(timed_epoch(), transfer)
+    try:
+        stream = iter(pf)
+        while True:
+            t = time.perf_counter()
+            nxt = next(stream, None)
+            if nxt is None:
+                break
+            waited = time.perf_counter() - t
+            batch, ids = nxt
+            counts = dict(_cuda.LAUNCHES)
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            meta = step(batch, gen)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            losses = {k: v.float().cpu().tolist() for k, v in meta.items()}
+            launched = {k: _cuda.LAUNCHES[k] - counts[k] for k in counts}
+            finite = all(np.isfinite(np.asarray(v, np.float64)).all()
+                         for v in losses.values())
+            steps.append({"bucket": [int(batch["tokens"].shape[1]),
+                                     int(batch["pitch"].shape[-1])],
+                          "batch": int(batch["tokens"].shape[0]),
+                          "unique_items": len(set(ids)),
+                          "mel_frames": int(batch["slens"].sum()),
+                          "wait_ms": waited * 1e3, "step_ms": ms,
+                          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "launches": launched, "all_losses_finite": finite,
+                          "losses": losses})
+            check(finite and launched["fused_stft"] == 2 and launched["mas"] == 1,
+                  f"data: step {steps[-1]}")
+    finally:
+        pf.close()
+    stages["epoch (collate, transfer, 4 steps)"] = time.perf_counter() - t_epoch
+    launches = dict(_cuda.LAUNCHES)  # the end of the data path
+    by_bucket = sorted((s["bucket"], s["batch"], s["unique_items"]) for s in steps)
+    want = [([t, m], int(round(tcfg.batch_size * min(768 / m, 2.0))), CLIPS_PER_BUCKET)
+            for t, m in V3_BUCKETS]  # 128, 128, 96, 64: MAX_BUCKET_SCALE = 2
+    check(by_bucket == want, f"data: batches {by_bucket}, expected {want}")
+    del model, disc, g_opt, d_opt, step, batch, meta
+    torch.cuda.empty_cache()
+
+    # ---- checks that read the card's results again ----
+    picks = [specs[i] for b in range(len(V3_BUCKETS))
+             for i in (b * CLIPS_PER_BUCKET, b * CLIPS_PER_BUCKET + 1)]
+    items_vs_cpu = cache_vs_cpu(cache, ds, picks)
+    enc_cpu = SpeakerEncoder(seed=0, device="cpu")
+    emb_l1 = []
+    for name, _, _ in picks[::2]:
+        y, sr = load_wav(os.path.join(ds, "wavs_postprocessed", name + ".wav"))
+        e_cpu = enc_cpu.compute_embedding(resample(y, sr, 16000))
+        e_card = np.load(os.path.join(ds, "se_embs", name + ".npy"))
+        emb_l1.append(float(np.abs(e_cpu - e_card).sum()))
+    check(max(emb_l1) < TOL, f"data: speaker embeddings card vs CPU, L1 {emb_l1}")
+    pair = []
+    for spec_on in (False, True):  # the same seed: the same batches
+        b = XvaBatcher([cache], batch_size=tcfg.batch_size, d_vector=emb["main"], seed=1)
+        b.device_spec = spec_on
+        pair.append(next(x for x in b.epoch() if x["pitch"].shape[-1] == V3_BUCKETS[0][1]))
+    spec_cmp = device_spec_vs_host(*(batch_to_device(x, dev) for x in pair), dev)
+    spec_cmp["ids_equal"] = pair[0]["ids"] == pair[1]["ids"]
+    check(spec_cmp["ids_equal"] and spec_cmp["passes"]
+          and not any(c["passes"] for c in spec_cmp["controls"].values()),
+          f"data: host linear against device_spec's: {spec_cmp}")
+    kernel = build_prof.get("named_kernels")
+    record = {
+        "items": len(specs), "audio_seconds": audio_s, "gpu": smi, "stage_seconds": stages,
+        "cache_build": {
+            "seconds": build_s, "items_per_s": len(specs) / build_s,
+            "audio_seconds_per_s": audio_s / build_s, "variant": variant,
+            "featurize_groups": groups, "group_shapes": group_shapes,
+            "fused_stft_launches": build_launches,
+            "fused_stft_device_ms": kernel["fused_stft_kernel"][0] if kernel else None,
+            "device_busy_ms": build_prof.get("device_busy_ms"),
+            "host_share": build_prof.get("host_share"),
+            "stage_seconds": cache.build_seconds, "profile": build_prof,
+            "cache_mbytes": sum(os.path.getsize(os.path.join(cache.cache_dir, f))
+                                for f in os.listdir(cache.cache_dir)
+                                if f.endswith(".npz")) / 1e6,
+            "pack_mbytes": os.path.getsize(os.path.join(cache.cache_dir, "packed.bin"))
+            / 1e6},
+        "speaker_encoder_items_per_s": len(specs) / stages["extract_speaker_embeddings"],
+        "collate_ms": collate_ms, "transfer_ms": transfer_ms, "steps": steps,
+        "launches": launches, "items_vs_cpu": items_vs_cpu,
+        "speaker_embedding_l1_vs_cpu": emb_l1, "host_linear_vs_device_spec": spec_cmp,
+        "tf32": False}
+    emit("data", **record)
+    return launches, record, {"dataset": ds, "cache": cache, "emb": emb}
+
+
+def effective_weights(module) -> dict:
+    """Every parameter of ``module`` as its forward uses it, float64 on the
+    CPU: each weight-norm pair combined over its own dim, the rest as is."""
+    from xva_trainer_tpu_torch.train.checkpoints import _weight_norm_dims
+
+    sd = {k: v.detach().double().cpu() for k, v in module.state_dict().items()}
+    wn = _weight_norm_dims(module)
+    out = {k: v for k, v in sd.items() if not any(k in (b + "_g", b + "_v") for b in wn)}
+    for base, dim in wn.items():
+        v = sd[base + "_v"]
+        dims = [d for d in range(v.dim()) if d != dim]
+        out[base] = v / torch.sqrt((v * v).sum(dim=dims, keepdim=True)) * sd[base + "_g"]
+    return out
+
+
+def file_effective_weights(path: str) -> dict:
+    """The generator's weights of a reference-layout ``.pt`` as the
+    reference's forward uses them: each (weight_g, weight_v) pair over dim 0."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("disc.") or k == "step" or k.endswith("weight_g"):
+            continue
+        if k.endswith("weight_v"):
+            v, g = v.double(), sd[k[:-1] + "g"].double()
+            dims = list(range(1, v.dim()))
+            out[k[:-len("_v")]] = v / torch.sqrt((v * v).sum(dim=dims, keepdim=True)) * g
+        else:
+            out[k] = v.double()
+    return out
+
+
+LOOP_UPDATES = 3  # updates of the first trainer; the resumed one takes one more
+FULL_PARAMS = (82_995_624, 46_747_132)  # XVAPitchConfig() and VitsDiscriminator()
+
+
+def train_loop_phase(cfg, dev, smi: str, data: dict, base_ckpt: str, work: str):
+    """Phase 14, ``train_loop``: the v3 fine-tune as a voice maker runs it,
+    ``XVAPitchTrainer(...).setup()`` → ``.train()`` → ``.export()``, at full
+    width on the ``data`` phase's dataset, cache and speaker embeddings:
+
+    1. the trainer (``XvaBatcher([cache], 64, emb)``, the default config but
+       ``save_step=1``): its ``gam`` from the batcher's mean batch;
+    2. ``setup(resume=False, pretrained_ckpt=<phase 5's reference .pt>)``,
+       the generator's effective weights held to the file's;
+    3. ``train(max_steps=3)``, the loss-seeding pass first: every loss
+       finite, a loss for every item, the window of checkpoints at 2 and 3,
+       ``graphs.json`` and ``training.log`` written;
+    4. a second trainer resumed from the directory, bit-identical to the
+       first (parameters, both optimisers, host state), takes a 4th update
+       and rolls the window to 3 and 4; the kernels' launches over 1-4 are
+       the ``loop`` path, 2 ``fused_stft`` and 1 ``mas`` a micro-step and a
+       seeding batch;
+    5. ``export`` served by ``serve.export_wav``, loaded strictly;
+    6. ``output_samples`` of two sentences;
+    7. one more update (no checkpoint) under the profiler.
+
+    Reports the seeding pass's seconds, each micro-step's ms by bucket,
+    each update's seconds with and without its checkpoint write, the
+    meter's frames a second, the prefetch wait a micro-step, the profiled
+    update's host share, each checkpoint's seconds and bytes, the resume's
+    and the export's, and peak memory. Returns the path's launch counts and
+    the record."""
+    from xva_trainer_tpu_torch.data.xva_dataset import XvaBatcher
+    from xva_trainer_tpu_torch.ops import _cuda
+    from xva_trainer_tpu_torch.serve import export_wav, load_xvapitch, synthesize_v3
+    from xva_trainer_tpu_torch.train import xvapitch_trainer as pxt
+
+    out = os.path.join(work, "loop_out")
+    emb = data["emb"]
+    torch.cuda.reset_peak_memory_stats()
+    waits: list = []
+
+    class TimedPrefetcher(pxt.Prefetcher):
+        """The trainer's prefetcher, timing the loop's wait for each batch."""
+
+        def __iter__(self):
+            it = super().__iter__()
             while True:
                 t = time.perf_counter()
-                nxt = next(stream, None)
-                if nxt is None:
-                    break
-                waited = time.perf_counter() - t
-                batch, ids = nxt
-                counts = dict(_cuda.LAUNCHES)
-                torch.cuda.reset_peak_memory_stats()
+                item = next(it, None)
+                waits.append(time.perf_counter() - t)
+                if item is None:
+                    return
+                yield item
+
+    def trainer(**kw):
+        batcher = XvaBatcher([data["cache"]], 64, emb["main"])
+        t0 = time.perf_counter()
+        tr = pxt.XVAPitchTrainer(batcher, pxt.XvaTrainConfig(output_dir=out, save_step=1, **kw),
+                                 cfg, device=dev)
+        torch.cuda.synchronize()
+        return tr, batcher, time.perf_counter() - t0
+
+    steps, saves = [], []
+
+    def instrument(tr):
+        """Time each micro-step (host ms around the call; CUDA events read
+        after the loop, so no host sync is added) and each checkpoint."""
+        for freeze, real in list(tr._steps.items()):
+            def step(batch, gen, real=real):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 t = time.perf_counter()
-                meta = step(batch, gen)
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t) * 1e3
-                losses = {k: v.float().cpu().tolist() for k, v in meta.items()}
-                launched = {k: _cuda.LAUNCHES[k] - counts[k] for k in counts}
-                finite = all(np.isfinite(np.asarray(v, np.float64)).all()
-                             for v in losses.values())
-                steps.append({"bucket": [int(batch["tokens"].shape[1]),
+                ev[0].record()
+                meta = real(batch, gen)
+                ev[1].record()
+                steps.append({"t": t, "host_ms": (time.perf_counter() - t) * 1e3, "events": ev,
+                              "bucket": [int(batch["tokens"].shape[1]),
                                          int(batch["pitch"].shape[-1])],
                               "batch": int(batch["tokens"].shape[0]),
-                              "unique_items": len(set(ids)),
-                              "mel_frames": int(batch["slens"].sum()),
-                              "wait_ms": waited * 1e3, "step_ms": ms,
-                              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-                              "launches": launched, "all_losses_finite": finite,
-                              "losses": losses})
-                check(finite and launched["fused_stft"] == 2 and launched["mas"] == 1,
-                      f"data: step {steps[-1]}")
-        finally:
-            pf.close()
-        stages["epoch (collate, transfer, 4 steps)"] = time.perf_counter() - t_epoch
-        launches = dict(_cuda.LAUNCHES)  # the end of the data path
-        by_bucket = sorted((s["bucket"], s["batch"], s["unique_items"]) for s in steps)
-        want = [([t, m], int(round(tcfg.batch_size * min(768 / m, 2.0))), CLIPS_PER_BUCKET)
-                for t, m in V3_BUCKETS]  # 128, 128, 96, 64: MAX_BUCKET_SCALE = 2
-        check(by_bucket == want, f"data: batches {by_bucket}, expected {want}")
-        del model, disc, g_opt, d_opt, step, batch, meta
-        torch.cuda.empty_cache()
+                              "frames": batch["slens"].sum(), "meta": meta})
+                return meta
+            tr._steps[freeze] = step
+        real_save = tr.ckpt.save
 
-        # ---- checks that read the card's results again ----
-        picks = [specs[i] for b in range(len(V3_BUCKETS))
-                 for i in (b * CLIPS_PER_BUCKET, b * CLIPS_PER_BUCKET + 1)]
-        items_vs_cpu = cache_vs_cpu(cache, ds, picks)
-        enc_cpu = SpeakerEncoder(seed=0, device="cpu")
-        emb_l1 = []
-        for name, _, _ in picks[::2]:
-            y, sr = load_wav(os.path.join(ds, "wavs_postprocessed", name + ".wav"))
-            e_cpu = enc_cpu.compute_embedding(resample(y, sr, 16000))
-            e_card = np.load(os.path.join(ds, "se_embs", name + ".npy"))
-            emb_l1.append(float(np.abs(e_cpu - e_card).sum()))
-        check(max(emb_l1) < TOL, f"data: speaker embeddings card vs CPU, L1 {emb_l1}")
-        pair = []
-        for spec_on in (False, True):  # the same seed: the same batches
-            b = XvaBatcher([cache], batch_size=tcfg.batch_size, d_vector=emb["main"], seed=1)
-            b.device_spec = spec_on
-            pair.append(next(x for x in b.epoch() if x["pitch"].shape[-1] == V3_BUCKETS[0][1]))
-        spec_cmp = device_spec_vs_host(*(batch_to_device(x, dev) for x in pair), dev)
-        spec_cmp["ids_equal"] = pair[0]["ids"] == pair[1]["ids"]
-        check(spec_cmp["ids_equal"] and spec_cmp["passes"]
-              and not any(c["passes"] for c in spec_cmp["controls"].values()),
-              f"data: host linear against device_spec's: {spec_cmp}")
-        kernel = build_prof.get("named_kernels")
-        record = {
-            "items": len(specs), "audio_seconds": audio_s, "gpu": smi, "stage_seconds": stages,
-            "cache_build": {
-                "seconds": build_s, "items_per_s": len(specs) / build_s,
-                "audio_seconds_per_s": audio_s / build_s, "variant": variant,
-                "featurize_groups": groups, "group_shapes": group_shapes,
-                "fused_stft_launches": build_launches,
-                "fused_stft_device_ms": kernel["fused_stft_kernel"][0] if kernel else None,
-                "device_busy_ms": build_prof.get("device_busy_ms"),
-                "host_share": build_prof.get("host_share"),
-                "stage_seconds": cache.build_seconds, "profile": build_prof,
-                "cache_mbytes": sum(os.path.getsize(os.path.join(cache.cache_dir, f))
-                                    for f in os.listdir(cache.cache_dir)
-                                    if f.endswith(".npz")) / 1e6,
-                "pack_mbytes": os.path.getsize(os.path.join(cache.cache_dir, "packed.bin"))
-                / 1e6},
-            "speaker_encoder_items_per_s": len(specs) / stages["extract_speaker_embeddings"],
-            "collate_ms": collate_ms, "transfer_ms": transfer_ms, "steps": steps,
-            "launches": launches, "items_vs_cpu": items_vs_cpu,
-            "speaker_embedding_l1_vs_cpu": emb_l1, "host_linear_vs_device_spec": spec_cmp,
-            "tf32": False}
-        emit("data", **record)
-        return launches, record
+        def save(step, state, host=None):
+            path = real_save(step, state, host)
+            saves.append(dict(tr.ckpt.last_save, t_end=time.perf_counter()))
+            return path
+        tr.ckpt.save = save
+
+    plain_prefetcher = pxt.Prefetcher
+    pxt.Prefetcher = TimedPrefetcher
+    try:
+        tr, batcher, build_s = trainer()
+        mean_bs, seed_batches = batcher.mean_batch_size(), len(batcher)
+        n_g = sum(p.numel() for p in tr.model.parameters())
+        n_d = sum(p.numel() for p in tr.disc.parameters())
+        check(tr.gam == math.ceil(tr.cfg.target_bs / mean_bs) and (n_g, n_d) == FULL_PARAMS,
+              f"train_loop: gam {tr.gam} at a mean batch of {mean_bs}, params {n_g} + {n_d}")
+        t0 = time.perf_counter()
+        tr.setup(resume=False, pretrained_ckpt=base_ckpt)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        ours, ref = effective_weights(tr.model), file_effective_weights(base_ckpt)
+        warm_err = max(float((ours[k] - ref[k]).abs().max() / ref[k].abs().max().clamp(min=1e-30))
+                       for k in ref)
+        check(sorted(ours) == sorted(ref) and warm_err < 1e-5,
+              f"train_loop: warm start's effective weights off the file's by {warm_err}")
+        instrument(tr)
+
+        # ---- the loop path: the seeding pass and 3 updates, then the resume's 4th ----
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = tr.train(max_steps=LOOP_UPDATES)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        micro_first = tr.micro_steps
+        files = sorted(f for f in os.listdir(out) if f.startswith("xVAPitch_"))
+        check(result["training_iters"] == LOOP_UPDATES and micro_first == LOOP_UPDATES * tr.gam
+              and len(tr.loss_sampling) == len(data["cache"].items)
+              and files == ["xVAPitch_2.json", "xVAPitch_2.pt", "xVAPitch_3.json",
+                            "xVAPitch_3.pt"]
+              and os.path.exists(os.path.join(out, "graphs.json"))
+              and os.path.exists(os.path.join(out, "training.log")),
+              f"train_loop: {result}, {micro_first} micro-steps, {len(tr.loss_sampling)} items "
+              f"seeded, files {files}")
+
+        back, _, _ = trainer()
+        t0 = time.perf_counter()
+        back.setup(resume=True)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        same = {"model": all(torch.equal(a, b) for a, b in zip(tr.model.state_dict().values(),
+                                                                back.model.state_dict().values())),
+                "disc": all(torch.equal(a, b) for a, b in zip(tr.disc.state_dict().values(),
+                                                               back.disc.state_dict().values()))}
+        for name in ("g_opt", "d_opt"):
+            a, b = getattr(tr, name).state_dict(), getattr(back, name).state_dict()
+            same[name] = (all(a[k] == b[k] for k in ("count", "mini_step", "grad_accum"))
+                          and all(torch.equal(x, y) for k in ("mu", "nu", "acc")
+                                  for x, y in zip(a[k] or [], b[k] or [])))
+        host = ("stage", "training_iters", "micro_steps", "finetune_counter", "finetune_it",
+                "loss_sampling", "disc_loss_window", "disc_loss_per_ckpt", "deltas",
+                "patience_count", "END_OF_TRAINING")
+        same["host"] = all(getattr(tr, k) == getattr(back, k) for k in host)
+        check(all(same.values()), f"train_loop: the resumed trainer differs: {same}")
+        seed_s, meter_first = tr.seed_seconds, list(tr.meter.history)
+        del tr
+        torch.cuda.empty_cache()
+        instrument(back)
+        t0 = time.perf_counter()
+        back.train(max_steps=LOOP_UPDATES + 1)
+        torch.cuda.synchronize()
+        resumed_train_s = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)  # the end of the loop path
+        micro = len(steps)
+        files = sorted(f for f in os.listdir(out) if f.endswith(".pt"))
+        check(back.training_iters == LOOP_UPDATES + 1 and micro == (LOOP_UPDATES + 1) * back.gam
+              and files == ["xVAPitch_3.pt", "xVAPitch_4.pt"],
+              f"train_loop: the resumed trainer at {back.training_iters} updates, {micro} "
+              f"micro-steps, files {files}")
+        want = {"fused_stft": 2 * (micro + seed_batches), "mas": micro + seed_batches}
+        check(all(launches[k] == v for k, v in want.items()),
+              f"train_loop: launches {launches}, expected {want}")
+
+        # ---- the export, served ----
+        t0 = time.perf_counter()
+        voice = back.export("smoke_voice", base_emb=emb["main"],
+                            other_embs=emb["others"].tolist())
+        export_s = time.perf_counter() - t0
+        sd = torch.load(voice, map_location="cpu", weights_only=True)
+        base_keys = set(torch.load(base_ckpt, map_location="cpu", weights_only=True))
+        want_keys = base_keys | {"disc." + k for k in back.disc.state_dict()}
+        with open(os.path.splitext(voice)[0] + ".json", encoding="utf8") as f:
+            meta_json = json.load(f)
+        check(set(sd) == want_keys and all(v.dtype == torch.float16 for v in sd.values())
+              and any(k.startswith("disc.") for k in sd)
+              and meta_json["modelType"] == "xVAPitch" and meta_json["version"] == "3.0"
+              and len(meta_json["games"][0]["base_speaker_emb"]) == 512,
+              f"train_loop: export keys {len(sd)} (want {len(want_keys)}), "
+              f"dtypes {sorted({str(v.dtype) for v in sd.values()})}, json {meta_json['version']}")
+        served = load_xvapitch(voice, cfg, device=dev)
+        wav = synthesize_v3(served, TEXTS[0], emb["main"])
+        t0 = time.perf_counter()
+        export_wav({"xvap_ckpt": voice, "out_path": os.path.join(work, "served.wav"),
+                    "text": TEXTS[1]}, cfg=cfg, device=dev)
+        serve_s = time.perf_counter() - t0
+        sr, pcm = wavfile.read(os.path.join(work, "served.wav"))
+        check(np.isfinite(wav).all() and len(wav) > 0 and sr == SR and len(pcm) > 0
+              and len(pcm) % HOP == 0,
+              f"train_loop: the export served {len(wav)} samples, export_wav {len(pcm)}")
+        del served
+
+        # ---- previews ----
+        t0 = time.perf_counter()
+        previews = back.output_samples(TEXTS[:2], emb["main"])
+        preview_s = time.perf_counter() - t0
+        lens = []
+        for p in previews:
+            p_sr, y = wavfile.read(p)
+            lens.append(len(y))
+            check(p_sr == SR and len(y) > 0 and len(y) % HOP == 0
+                  and np.isfinite(np.asarray(y, np.float64)).all(),
+                  f"train_loop: preview {p}: {len(y)} samples at {p_sr} Hz")
+        check(len(previews) == 2, f"train_loop: {len(previews)} previews")
+
+        # ---- one more update, no checkpoint, under the profiler ----
+        back.cfg.save_step = 10 ** 9
+        n_before = len(steps)
+        _, prof = profiled(lambda: back.train(max_steps=LOOP_UPDATES + 2))
+        profiled_micro = len(steps) - n_before
+        peak = torch.cuda.max_memory_allocated()
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        pxt.Prefetcher = plain_prefetcher
+
+    # ---- what the loop's micro-steps and updates took ----
+    torch.cuda.synchronize()
+    losses_finite = all(bool(torch.isfinite(v).all()) for s in steps for v in s["meta"].values())
+    check(losses_finite, "train_loop: a loss component is not finite")
+    for s in steps:
+        s["event_ms"] = s["events"][0].elapsed_time(s["events"][1])
+        s["frames"] = int(s["frames"])
+    gam = back.gam
+    loop_steps = steps[:micro]
+    seen, by_bucket = set(), {}
+    for s in loop_steps:
+        key = "x".join(map(str, s["bucket"]))
+        rec = by_bucket.setdefault(key, {"batch": s["batch"], "first_host_ms": None,
+                                         "first_event_ms": None, "host_ms": [], "event_ms": [],
+                                         "mel_frames": []})
+        rec["mel_frames"].append(s["frames"])
+        if key not in seen:
+            seen.add(key)
+            rec["first_host_ms"], rec["first_event_ms"] = s["host_ms"], s["event_ms"]
+        else:
+            rec["host_ms"].append(s["host_ms"])
+            rec["event_ms"].append(s["event_ms"])
+    # an update: from its first micro-step's start to the next update's (the
+    # last: to the end of its checkpoint); its checkpoint write is the save
+    # that ends it
+    starts = [loop_steps[i * gam]["t"] for i in range(LOOP_UPDATES + 1)]
+    ends = starts[1:LOOP_UPDATES] + [saves[LOOP_UPDATES - 1]["t_end"]] + [saves[-1]["t_end"]]
+    updates = []
+    for i in range(LOOP_UPDATES + 1):
+        group = loop_steps[i * gam:(i + 1) * gam]
+        wall = ends[i] - starts[i]
+        frames = sum(s["frames"] for s in group)
+        updates.append({"update": i + 1, "seconds": wall, "checkpoint_seconds": saves[i]["seconds"],
+                        "seconds_without_checkpoint": wall - saves[i]["seconds"],
+                        "mel_frames": frames,
+                        "frames_per_s_without_checkpoint": frames / (wall - saves[i]["seconds"])})
+    meter = meter_first + back.meter.history[:1]  # the 4 updates, each with its checkpoint
+    record = {
+        "gpu": smi, "config": "XVAPitchConfig() + VitsDiscriminator(), seeded, warm-started",
+        "params": {"generator": n_g, "discriminator": n_d}, "items": len(data["cache"].items),
+        "mean_batch": mean_bs, "gam": gam, "seeding_batches": seed_batches,
+        "trainer_build_seconds": build_s, "warm_start_seconds": warm_s,
+        "warm_start_max_rel_err": warm_err, "seed_seconds": seed_s,
+        "first_train_seconds": train_s, "first_train_result": result,
+        "resumed_train_seconds": resumed_train_s,
+        "micro_steps": micro, "micro_step_ms_by_bucket": by_bucket,
+        "updates": updates, "frames_s_meter_mean": result["frames_s"],
+        "frames_s_meter_history": meter,
+        "frames_s_after_first_update": sum(meter[1:]) / len(meter[1:]),
+        "frames_s_profiled_update": back.meter.history[-1],
+        "prefetch_wait_ms": [w * 1e3 for w in waits],
+        "prefetch_wait_ms_mean_after_first": float(np.mean(waits[1:]) * 1e3) if len(waits) > 1
+        else None,
+        "checkpoints": saves, "resume_seconds": resume_s, "resume_bit_identical": same,
+        "export_seconds": export_s, "export_bytes": os.path.getsize(voice),
+        "export_keys": len(sd), "export_wav_seconds": serve_s, "served_samples": len(pcm),
+        "preview_seconds": preview_s, "preview_samples": lens,
+        "profiled_update": prof, "profiled_micro_steps": profiled_micro,
+        "launches": launches, "peak_memory_gb": peak / 1e9, "amp": True, "tf32": False}
+    for s in saves:
+        s.pop("t_end", None)
+    emit("train_loop", **record)
+    return launches, record
 
 
 def main() -> int:
@@ -1322,16 +1651,51 @@ def main() -> int:
           and bool(torch.isfinite(a["wav"]).all()),
           f"model_gpu_vs_cpu: durations equal {same_durations}, max abs diff {diff}, "
           f"mean abs diff {mean_diff}, CPU mean |wav| {ref_mean}")
-    shutil.rmtree(work, ignore_errors=True)
     del model, model_cpu
 
-    data_launches, data = data_phase(cfg_m, dev, smi)
+    # phase 5's reference-layout .pt stays for the loop's warm start; the data
+    # phase's dataset, cache and embeddings for the loop
+    data_work = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        data_launches, data, data_ctx = data_phase(cfg_m, dev, smi, data_work)
+        loop_launches, loop = train_loop_phase(cfg_m, dev, smi, data_ctx, ckpt, data_work)
+    finally:
+        shutil.rmtree(data_work, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
     build = data["cache_build"]
     # the least time for the build's 32 launches: each group's bound, summed
     build["fused_stft_bound_ms"] = sum(bound(gB, gT, 1 + (gT - n) // cfg.hop_length)[2]
                                        for gB, gT in build["group_shapes"])
+    # the build's shapes timed alone: the kernel, its plain version and the
+    # torch.stft chain at each slot length (8 clips, pre-padded, linear on),
+    # each summed over the groups of that length
+    build_shapes = []
+    for T in sorted({gT for _, gT in build["group_shapes"]}):
+        gB = max(b for b, t in build["group_shapes"] if t == T)
+        count = sum(1 for _, t in build["group_shapes"] if t == T)
+        y = torch.from_numpy(np.random.default_rng(T).uniform(-0.5, 0.5, (gB, T))
+                             .astype(np.float32)).to(dev)
+        calls = {"ms": functools.partial(fns["ms"], y, None),
+                 "plain_ms": functools.partial(fns["plain_ms"], y, None),
+                 "library_ms": functools.partial(library, y, False)}
+        runs = {k2: [] for k in calls for k2 in (k, k.replace("ms", "device_ms"))}
+        for order in (list(calls), list(calls)[::-1]):
+            for k in order:
+                runs[k].append(cuda_ms(calls[k], iters=10, flush=flush))
+                runs[k.replace("ms", "device_ms")].append(device_ms(calls[k], flush, iters=10))
+        t = {k: sum(v) / len(v) for k, v in runs.items()}
+        t.update(shape=[gB, T], groups=count,
+                 bound_ms=bound(gB, T, 1 + (T - n) // cfg.hop_length)[2])
+        build_shapes.append(t)
+    build["by_slot"] = build_shapes
+    for key in ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+                "library_device_ms", "bound_ms"):
+        build[f"fused_stft_32_{key}"] = sum(t[key] * t["groups"] for t in build_shapes)
+    emit("cache_build_shapes", by_slot=build_shapes,
+         sums={k: v for k, v in build.items() if k.startswith("fused_stft_32_")}, gpu=smi)
     train_launches, train = train_phases(cfg_m, dev)
-    by_path = {"serve": launches, "data": data_launches, "train": train_launches}
+    by_path = {"serve": launches, "data": data_launches, "loop": loop_launches,
+               "train": train_launches}
 
     kernels = [{
         "name": "fused_stft", "route": "cuda",
@@ -1345,7 +1709,11 @@ def main() -> int:
         "launches_per_train_step": train_launches["fused_stft"] / train["timed_steps"],
         "cache_build": {k: build[k] for k in ("fused_stft_launches", "featurize_groups",
                                               "fused_stft_device_ms", "fused_stft_bound_ms",
-                                              "seconds")},
+                                              "seconds", "fused_stft_32_ms",
+                                              "fused_stft_32_device_ms", "fused_stft_32_plain_ms",
+                                              "fused_stft_32_plain_device_ms",
+                                              "fused_stft_32_library_ms",
+                                              "fused_stft_32_library_device_ms")},
         "train_step_shapes": {k: {m: v[m] for m in ("shape", "linear", "ms", "device_ms",
                                                     "plain_ms", "plain_device_ms",
                                                     "library_ms", "library_device_ms",
@@ -1372,6 +1740,7 @@ def main() -> int:
     # each path's kernels: fused_stft on all, mas on the training steps, every step
     missing = [p + ":" + k for p, ks in (("serve", ["fused_stft"]),
                                          ("data", ["fused_stft", "mas"]),
+                                         ("loop", ["fused_stft", "mas"]),
                                          ("train", ["fused_stft", "mas"]))
                for k in ks if by_path[p][k] < 1]
     check(not missing, f"a main path launched no {missing}")

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the fused STFT kernel within 1e-3, the MAS kernel with identical paths, and
-a v3 feature cache built on the card against the same cache built on the
-CPU.
+the fused STFT kernel within 1e-3, the MAS kernel with identical paths, a
+v3 feature cache built on the card against the same cache built on the
+CPU, and the v3 trainer loop at the tiny config through both kernels (a
+checkpoint, a resume and an export).
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skips elsewhere. Run on the card
 (``--noconftest``: tests/conftest.py imports JAX, which the card's machine
@@ -276,3 +277,61 @@ def test_mas_kernel_empty_batch_and_bad_input(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         mas.maximum_path(torch.zeros((1, 4096, 4096), device=cuda),
                          torch.ones((1, 4096, 4096), device=cuda))
+
+
+# ---------------- the v3 trainer loop ----------------
+
+
+def test_trainer_loop_on_card(cuda, tmp_path):
+    """``XVAPitchTrainer`` at the tiny config on the card: the loss-seeding
+    pass and two updates through both kernels (2 ``fused_stft`` and 1
+    ``mas`` launch a micro-step and a seeding batch), a checkpoint each
+    update, a resume bit-identical to the saver, one more update, and an
+    export that ``serve.load_xvapitch`` loads strictly and serves."""
+    from xva_trainer_tpu_torch.data.dataset import Bucket
+    from xva_trainer_tpu_torch.data.text import v3_text_to_ids
+    from xva_trainer_tpu_torch.data.xva_dataset import XvaBatcher, XvaFeatureCache
+    from xva_trainer_tpu_torch.models.xvapitch import XVAPitchConfig
+    from xva_trainer_tpu_torch.serve import load_xvapitch, synthesize_v3
+    from xva_trainer_tpu_torch.train.xvapitch_trainer import XVAPitchTrainer, XvaTrainConfig
+
+    tiny = XVAPitchConfig(n_vocab=524, big=False, upsample_initial_channel=32,
+                          resblock_kernel_sizes=(3,), spec_segment_size=8, mltts_rc=False,
+                          text_layers=2, posterior_layers=3, flow_wn_layers=2, num_flows=2,
+                          sdp_flows=2, pitch_layers=1)
+    cache = XvaFeatureCache(_voiced_dataset(tmp_path / "ds", n=4), v3_text_to_ids("en"))
+    cache.build()
+    dvec = np.random.default_rng(1).standard_normal(512).astype(np.float32) * 0.1
+    out = str(tmp_path / "out")
+
+    def trainer():
+        batcher = XvaBatcher([cache], batch_size=4, d_vector=dvec, buckets=[Bucket(64, 320)])
+        cfg = XvaTrainConfig(output_dir=out, batch_size=4, target_bs=4, save_step=1)
+        return XVAPitchTrainer(batcher, cfg, tiny, device="cuda")
+
+    tr = trainer()
+    tr.setup(resume=False)
+    _cuda.reset_launch_counts()
+    result = tr.train(max_steps=2)
+    seeding_batches = 1
+    assert result["training_iters"] == 2 and tr.micro_steps == 2 and len(tr.loss_sampling) == 4
+    assert _cuda.LAUNCHES["fused_stft"] == 2 * (tr.micro_steps + seeding_batches)
+    assert _cuda.LAUNCHES["mas"] == tr.micro_steps + seeding_batches
+    assert tr.ckpt._steps() == [1, 2]
+
+    back = trainer()
+    back.setup(resume=True)
+    for a, b in ((tr.model, back.model), (tr.disc, back.disc)):
+        assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
+                                                     b.state_dict().values()))
+    for a, b in ((tr.g_opt, back.g_opt), (tr.d_opt, back.d_opt)):
+        assert (a.count, a.mini_step) == (b.count, b.mini_step) == (2, 0)
+        assert all(torch.equal(x, y) for x, y in zip(a.mu + a.nu, b.mu + b.nu))
+    assert back.loss_sampling == tr.loss_sampling and back.stage == tr.stage
+    back.train(max_steps=3)
+    assert back.training_iters == 3 and back.ckpt._steps() == [2, 3]
+
+    path = back.export("card_voice", base_emb=dvec)
+    model = load_xvapitch(path, tiny, device="cuda")
+    wav = synthesize_v3(model, "Hello there.", dvec, max_frames=64)
+    assert wav.ndim == 1 and len(wav) > 0 and np.isfinite(wav).all()

@@ -105,7 +105,7 @@ def _tiny_step(params, use_amp=False, train=True):
     model, disc = port_models(g_params, d_params)
     model.train(train)
     disc.train(train)
-    g_opt, d_opt = make_optimizers(model, disc, XvaTrainConfig(batch_size=2, target_bs=2))
+    g_opt, d_opt = make_optimizers(model, disc, XvaTrainConfig(batch_size=2, target_bs=2), 1)
     step = make_v3_step(model, disc, g_opt, d_opt, freeze_post_dec=False, use_amp=use_amp)
     return model, step
 
@@ -164,7 +164,7 @@ def test_masks_and_config():
     assert update_mask(model, freeze_post_dec=True, hifi_only=True) == post_dec
     assert all(update_mask(model, freeze_post_dec=False, hifi_only=False))
     assert XvaTrainConfig().gam == 7 and XvaTrainConfig(batch_size=400).gam == 1
-    g_opt, d_opt = make_optimizers(model, VitsDiscriminator(), XvaTrainConfig(optimizer="lion"))
+    g_opt, d_opt = make_optimizers(model, VitsDiscriminator(), XvaTrainConfig(optimizer="lion"), 7)
     assert g_opt.kind == "lion" and g_opt.lr == pytest.approx(1.75e-4 / 5)
     assert d_opt.weight_decay == pytest.approx(0.05) and g_opt.grad_accum == 7
 

@@ -52,6 +52,31 @@ class GanOptimizer:
         self.nu = [torch.zeros_like(p) for p in self.params] if kind == "adamw" else None
         self.acc = [torch.zeros_like(p) for p in self.params] if grad_accum > 1 else None
 
+    def state_dict(self) -> dict:
+        """The optimiser's state (optax's inner state with ``MultiSteps``'):
+        the moments ``mu`` and ``nu``, the accumulated gradient ``acc``, the
+        update ``count`` and the micro-step ``mini_step``, as references to
+        the live tensors (``torch.save`` copies them)."""
+        return {"kind": self.kind, "grad_accum": self.grad_accum, "count": self.count,
+                "mini_step": self.mini_step, "mu": self.mu, "nu": self.nu, "acc": self.acc}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict()``'s state into this optimiser's tensors
+        (same kind, accumulation and parameter shapes), bit for bit."""
+        if (state["kind"], state["grad_accum"]) != (self.kind, self.grad_accum):
+            raise ValueError(f"a {state['kind']} state with grad_accum {state['grad_accum']} "
+                             f"for a {self.kind} optimiser with grad_accum {self.grad_accum}")
+        for name in ("mu", "nu", "acc"):
+            ours, theirs = getattr(self, name), state[name]
+            if ours is None:
+                continue
+            if len(theirs) != len(ours) or any(a.shape != b.shape for a, b in zip(ours, theirs)):
+                raise ValueError(f"the saved {name} does not match the parameters' shapes")
+            for a, b in zip(ours, theirs):
+                a.copy_(b)
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+
     def learning_rate(self, count: Optional[int] = None) -> float:
         """lr·γ^(count // decay_every) at update ``count`` (default: the next)."""
         count = self.count if count is None else count

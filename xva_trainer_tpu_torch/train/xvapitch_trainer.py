@@ -1,10 +1,14 @@
-"""The v3 (xVAPitch) training step and what feeds it.
+"""The v3 (xVAPitch) trainer: its step, the loop around it, checkpoints and
+export.
 
-Counterpart of ``xva_trainer_tpu/train/xvapitch_trainer.py``: the config
-fields the step reads, the early-stop targets, ``preprocess_audio``, the
-batch's transfer to the card and its spectrogram, the freeze helpers,
-``make_v3_step`` and ``make_v3_loss_eval``. The trainer loop around them
-(checkpoints, export) is not ported yet.
+Counterpart of ``xva_trainer_tpu/train/xvapitch_trainer.py``: the config,
+the early-stop targets, ``preprocess_audio``, the batch's transfer to the
+card and its spectrogram, the freeze helpers, ``make_v3_step``,
+``make_v3_loss_eval`` and ``XVAPitchTrainer`` (setup, resume and warm
+start, the loss-seeding pass, the finetune/priors batch stream, the loop
+with its stage 1 → 2 → end schedule, rolling checkpoints, previews and the
+xVASynth export). ``pre_cache_g2p`` belongs to the multilingual text front
+end, which is not ported yet.
 
 The step is the reference's per-micro-step generator pass then
 discriminator pass (python/xvapitch/xva_train.py:652-706), in two passes:
@@ -14,28 +18,36 @@ therefore sees the pre-update D parameters, and the gradients are those of
 the JAX package's fused single-backward step (tests/test_fused_gd.py shows
 that the two formulations agree). ``torch.autograd.grad`` takes the G
 gradients with respect to the generator's parameters only, so no G-loss
-gradient ever reaches the discriminator's. The JAX step's ``fused_gd``
-switch chooses how XLA lays out one program; the port has one path.
+gradient ever reaches the discriminator's. The JAX config's ``fused_gd``
+switch chooses how XLA lays out one program; the port has one step, so the
+field is left out of its config.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import math
 import os
-from typing import Callable, Dict, List, Optional, Sequence
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from .. import resolve_device
 from ..data.audio_io import load_wav, save_wav
-from ..models.xvapitch import VitsDiscriminator, XVAPitch
+from ..data.prefetch import Prefetcher
+from ..data.xva_dataset import XvaBatcher, lang_to_id
+from ..models.xvapitch import VitsDiscriminator, XVAPitch, XVAPitchConfig
 from ..models.xvapitch import losses as v_losses
 from ..ops.fused_stft import mel_spectrogram_fused
 from ..ops.loudness import normalize_ebu_r128
 from ..ops.stft import DEFAULT_MEL
 from . import amp
+from .checkpoints import CheckpointManager, export_xvapitch_v3
+from .metrics import GraphsWriter, ThroughputMeter, TrainingLogger, make_tensorboard
 from .optim import GanOptimizer
 
 POST_DEC = ("posterior_encoder", "waveform_decoder")
@@ -43,9 +55,10 @@ POST_DEC = ("posterior_encoder", "waveform_decoder")
 
 @dataclasses.dataclass
 class XvaTrainConfig:
-    """The fields of the JAX package's ``XvaTrainConfig`` that the step and
-    its optimisers read (reference xva_train.py and training_util.py)."""
+    """The JAX package's ``XvaTrainConfig``, field for field and default for
+    default, but ``fused_gd`` (an XLA program layout; the port has one step)."""
 
+    output_dir: str = "out_v3"
     batch_size: int = 64     # the largest (768-frame) bucket's batch
     target_bs: int = 400     # reference :1142
     gen_lr: float = 1.75e-4
@@ -53,16 +66,27 @@ class XvaTrainConfig:
     lr_gamma: float = 0.999875
     weight_decay: float = 0.01
     optimizer: str = "adamw"  # or "lion" (reference --lion: lr/5, wd×5)
+    save_step: int = 50      # optimiser updates between checkpoints
+    finetune_weight: int = 20  # finetune updates per priors update (:314, 882-886)
+    do_loss_sorting: bool = True
+    # a no-grad pass before training to seed the loss-sorted sampler
+    # (reference init_data_losses :1248-1316)
+    seed_loss_sorting: bool = True
     seed: int = 0
+    patience: int = 3
     # train only the posterior encoder and the waveform decoder (reference
     # --hifi_only, xva_train.py:649-679)
     hifi_only: bool = False
     # bf16 compute, fp32 masters (train/amp.py); the reference defaults AMP on
     use_amp: bool = True
+    # ship int16 audio and compute the linear spectrogram on the card
+    # (materialize_spec)
+    device_spec: bool = True
 
     @property
     def gam(self) -> int:
-        """Micro-steps accumulated per optimiser update (reference :1142)."""
+        """ceil(target_bs / batch_size), as the JAX config has it. The
+        trainer's own ``gam`` divides by the batcher's mean batch instead."""
         return max(1, int(math.ceil(self.target_bs / self.batch_size)))
 
 
@@ -77,9 +101,11 @@ def xva_target_deltas(num_data_lines: int) -> List[float]:
     return [0.04, td * 0.2]
 
 
-def make_optimizers(model: nn.Module, disc: nn.Module, cfg: XvaTrainConfig):
-    """The generator's and the discriminator's optimisers of ``cfg``."""
-    kw = dict(weight_decay=cfg.weight_decay, gamma=cfg.lr_gamma, grad_accum=cfg.gam,
+def make_optimizers(model: nn.Module, disc: nn.Module, cfg: XvaTrainConfig, grad_accum: int):
+    """The generator's and the discriminator's optimisers of ``cfg``, each
+    accumulating ``grad_accum`` micro-steps per update (the trainer's
+    ``gam``)."""
+    kw = dict(weight_decay=cfg.weight_decay, gamma=cfg.lr_gamma, grad_accum=grad_accum,
               kind=cfg.optimizer)
     return (GanOptimizer(model.parameters(), cfg.gen_lr, **kw),
             GanOptimizer(disc.parameters(), cfg.disc_lr, **kw))
@@ -294,3 +320,417 @@ def make_v3_loss_eval(model: XVAPitch, use_amp: bool = True):
         return per
 
     return eval_losses
+
+
+# ---------------- the trainer ----------------
+
+
+class XVAPitchTrainer:
+    """The v3 fine-tune: ``XVAPitchTrainer(...).setup()`` → ``.train()`` →
+    ``.export()``, as the JAX server's v3 flow and ``cli.py train-v3`` drive
+    the JAX trainer.
+
+    The schedule is the JAX trainer's (reference xva_train.py):
+    - ``gam`` = ceil(target_bs / the batcher's mean batch) micro-steps per
+      optimiser update (:1142; the buckets scale the batch);
+    - stage 1 and priors batches freeze the posterior encoder and the
+      decoder (:725-727); finetune and priors batches alternate,
+      ``finetune_weight`` updates to one (:314, 882-886);
+    - every ``save_step`` updates: the mean disc loss, the 10-wide window of
+      its relative drops against ``xva_target_deltas``, patience, stage
+      1 → 2 → end (:782-858), and a checkpoint;
+    - the loss-sorted resampling at each epoch's end (:665-668), seeded by
+      a no-grad pass before training (:1248-1316).
+
+    The model and discriminator are made here, on ``device``, from
+    ``cfg.seed`` (the optimisers and the two steps hold their parameters, as
+    the JAX trainer makes its steps here); ``setup`` resumes or warm-starts
+    them. Every draw comes from an explicit ``torch.Generator``: the step's,
+    seeded ``cfg.seed + 100`` at each ``train()`` call (so a resumed run does
+    not replay the draws an unbroken one would have made, as in JAX), the
+    seeding pass's (``cfg.seed + 999``) and one per preview sample.
+
+    On one card the JAX trainer's mesh has no counterpart: the batchers'
+    ``batch_divisor`` stays 1.
+    """
+
+    def __init__(
+        self,
+        batcher: XvaBatcher,
+        cfg: XvaTrainConfig,
+        model_cfg: XVAPitchConfig = XVAPitchConfig(),
+        logger: Optional[TrainingLogger] = None,
+        priors_batcher: Optional[XvaBatcher] = None,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.batcher = batcher
+        self.priors_batcher = priors_batcher
+        self.cfg = cfg
+        for b_ in (batcher, priors_batcher):
+            if b_ is not None:
+                b_.batch_divisor = 1
+                b_.device_spec = cfg.device_spec
+        self.logger = logger or TrainingLogger(cfg.output_dir)
+        num_lines = len(batcher._index)
+        self.target_deltas = xva_target_deltas(max(num_lines, 1))
+        self.graphs = GraphsWriter(cfg.output_dir, (1, 2),
+                                   {1: self.target_deltas[0], 2: self.target_deltas[1]})
+        self.ckpt = CheckpointManager(cfg.output_dir, prefix="xVAPitch")
+        self.meter = ThroughputMeter()
+        # the architecture beside the checkpoints, so that inference can
+        # rebuild the model of any output directory
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        with open(os.path.join(cfg.output_dir, "model_config.json"), "w") as f:
+            json.dump(dataclasses.asdict(model_cfg), f, indent=2)
+
+        # micro-batches are bucket-sized (XvaBatcher.batch_size_for), so gam
+        # divides the target by the epoch plan's mean micro-batch
+        try:
+            mean_bs = batcher.mean_batch_size()
+        except Exception:
+            mean_bs = float(cfg.batch_size)
+        self.gam = max(1, int(math.ceil(cfg.target_bs / max(mean_bs, 1.0))))
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.seed)
+            self.model = XVAPitch(model_cfg)
+            torch.manual_seed(cfg.seed + 9)
+            self.disc = VitsDiscriminator()
+        self.model.to(self.device).train()
+        self.disc.to(self.device).train()
+        self.g_opt, self.d_opt = make_optimizers(self.model, self.disc, cfg, self.gam)
+        # both steps update the same optimisers: a freeze at the micro-step
+        # that completes an update masks that update
+        self._steps = {
+            freeze: make_v3_step(self.model, self.disc, self.g_opt, self.d_opt, freeze,
+                                 hifi_only=cfg.hifi_only, use_amp=cfg.use_amp)
+            for freeze in (False, True)}
+        self._set_up = False
+        self.stage = 1
+        self.training_iters = 0       # optimiser updates
+        self.micro_steps = 0
+        self.finetune_counter = 0
+        self.finetune_it = True
+        self.loss_sampling: Dict[str, float] = {}
+        self.disc_loss_window: List[float] = []
+        self.disc_loss_per_ckpt: List[List[float]] = [[], []]
+        self.deltas: List[List[float]] = [[], []]
+        self.patience_count = 0
+        self.stop_requested = False
+        self.paused = False   # warm pause: the models stay on the card
+        self.END_OF_TRAINING = False
+        self.seed_seconds: Optional[float] = None
+        # TensorBoard scalars every 21 updates (reference xva_train.py:757-771)
+        self.tb = make_tensorboard(cfg.output_dir)
+
+    # ---- set-up, resume, warm start ----
+
+    def setup(self, resume: bool = True, pretrained_ckpt: Optional[str] = None) -> None:
+        """Resume from the newest checkpoint of the output directory when
+        ``resume`` and there is one: parameters, both optimisers' state and
+        the host state, bit for bit. Else warm-start from the reference-layout
+        ``.pt`` ``pretrained_ckpt`` when given (``[base]``
+        xVAPitch_5820651.pt's role, reference xva_train.py:104-131,250).
+
+        An output directory that holds the JAX package's orbax checkpoints and
+        none of the port's is refused: starting from scratch there would
+        quietly throw a user's training away."""
+        from ..interop.pretrained import load_xvapitch_base
+
+        resumed = False
+        if resume:
+            step = self.ckpt.latest_step()
+            if step is None and self.ckpt.foreign_steps():
+                raise RuntimeError(
+                    f"{self.ckpt.output_dir} holds JAX orbax checkpoints "
+                    f"{['xVAPitch_%d' % s for s in self.ckpt.foreign_steps()]} and no "
+                    "checkpoint of the PyTorch port, which cannot read them; resume them "
+                    "with the JAX package, or train in another output directory")
+            if step is not None:
+                _, state, host = self.ckpt.restore_latest(map_location=self.device)
+                self.load_checkpoint_state(state, host)
+                resumed = True
+                self.logger.log(f"[resume] stage {self.stage} iters {self.training_iters}")
+        if not resumed and pretrained_ckpt:
+            load_xvapitch_base(pretrained_ckpt, self.model, self.disc)
+            self.logger.log(f"[warm start] base checkpoint {os.path.basename(pretrained_ckpt)}")
+        self._set_up = True
+
+    def host_state(self) -> Dict[str, Any]:
+        """The JSON sidecar's host state, with the JAX trainer's keys."""
+        return {"stage": self.stage, "training_iters": self.training_iters,
+                "disc_loss_per_ckpt": self.disc_loss_per_ckpt, "deltas": self.deltas,
+                "patience_count": self.patience_count, "frames_s": self.meter.mean()}
+
+    def checkpoint_state(self) -> Dict[str, Any]:
+        """What a checkpoint holds beside the sidecar's host state: both
+        models, both optimisers, and the rest of the host state."""
+        return {"model": self.model.state_dict(), "disc": self.disc.state_dict(),
+                "g_opt": self.g_opt.state_dict(), "d_opt": self.d_opt.state_dict(),
+                "trainer": {"micro_steps": self.micro_steps,
+                            "finetune_counter": self.finetune_counter,
+                            "finetune_it": self.finetune_it,
+                            "loss_sampling": dict(self.loss_sampling),
+                            "disc_loss_window": list(self.disc_loss_window),
+                            "END_OF_TRAINING": self.END_OF_TRAINING}}
+
+    def load_checkpoint_state(self, state: Dict[str, Any], host: Optional[Dict]) -> None:
+        self.model.load_state_dict(state["model"], strict=True)
+        self.disc.load_state_dict(state["disc"], strict=True)
+        self.g_opt.load_state_dict(state["g_opt"])
+        self.d_opt.load_state_dict(state["d_opt"])
+        for k, v in state["trainer"].items():
+            setattr(self, k, v)
+        if host:
+            self.stage = host["stage"]
+            self.training_iters = host["training_iters"]
+            self.disc_loss_per_ckpt = host["disc_loss_per_ckpt"]
+            self.deltas = host["deltas"]
+            self.patience_count = host["patience_count"]
+
+    # ---- the loss-sorted sampler's seed ----
+
+    def seed_data_losses(self) -> int:
+        """One no-grad pass over the finetune set before training, so that
+        the first epoch already samples by loss (reference init_data_losses,
+        xva_train.py:1248-1316). The per-item losses stay on the card until
+        the pass ends. Returns the items seeded."""
+        if not self.cfg.do_loss_sorting or self.cfg.hifi_only:
+            return 0
+        t0 = time.perf_counter()
+        eval_fn = make_v3_loss_eval(self.model, use_amp=self.cfg.use_amp)
+        gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed + 999)
+        pending = []
+        for batch in self.batcher.epoch(shuffle=False):
+            per = eval_fn(batch_to_device(batch, self.device), gen)
+            pending.append((batch["ids"], per[: len(batch["ids"])]))
+        count = 0
+        if pending:
+            values = torch.cat([p for _, p in pending]).float().cpu().tolist()
+            names = [n for ids, _ in pending for n in ids]
+            for name, v in zip(names, values):
+                self.loss_sampling[name] = v
+                count += 1
+        if self.loss_sampling:
+            self.batcher.resample_by_loss(self.loss_sampling)
+        self.seed_seconds = time.perf_counter() - t0
+        self.logger.log(f"[loss-sorting] seeded {count} items")
+        return count
+
+    # ---- the batch stream ----
+
+    def _next_batch(self, iterators, ft_it: bool):
+        key = "ft" if (ft_it or self.priors_batcher is None) else "priors"
+        if iterators.get(key) is None:
+            src = self.batcher if key == "ft" else self.priors_batcher
+            iterators[key] = src.epoch()
+        try:
+            return next(iterators[key]), key == "ft"
+        except StopIteration:
+            if key == "ft" and self.cfg.do_loss_sorting and self.loss_sampling:
+                # this runs on the Prefetcher's thread while the loop adds to
+                # loss_sampling at gam boundaries: resample from a snapshot
+                # (iterating the live dict could raise "changed size")
+                self.batcher.resample_by_loss(dict(self.loss_sampling))
+            src = self.batcher if key == "ft" else self.priors_batcher
+            iterators[key] = src.epoch()
+            return next(iterators[key]), key == "ft"
+
+    def _batch_stream(self):
+        """Endless (batch, is_ft): the finetune/priors interleave (reference
+        FINETUNE_WEIGHT alternation, xva_train.py:314, 882-886) on counters of
+        its own, so that it can run ahead of the loop on the prefetch thread:
+        is_ft depends on the micro-step count alone."""
+        iterators: Dict[str, Any] = {}
+        ft_it = self.finetune_it
+        counter = self.finetune_counter
+        micro = 0
+        while True:
+            batch, is_ft = self._next_batch(iterators, ft_it)
+            yield batch, is_ft
+            micro += 1
+            if micro % self.gam == 0:
+                counter += 1
+                ft_it = True
+                if counter >= self.cfg.finetune_weight:
+                    ft_it = False
+                    counter = 0
+
+    # ---- the loop ----
+
+    def train(self, max_steps: Optional[int] = None) -> Dict:
+        """Train until early stop, ``stop_requested`` or ``max_steps``
+        optimiser updates in all. Collate and the transfer run on the
+        prefetcher's thread; the loop launches steps and reads the losses
+        from the card once per update. Returns the stage, the updates, the
+        wall seconds and the mean frames a second."""
+        if not self._set_up:
+            self.setup()
+        if self.cfg.do_loss_sorting and self.cfg.seed_loss_sorting and not self.loss_sampling:
+            self.seed_data_losses()
+        gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed + 100)
+        pending: List = []
+        start = time.perf_counter()
+        self.meter.start()
+        pf = Prefetcher(self._batch_stream(),
+                        lambda t: (batch_to_device(t[0], self.device), t[0]["ids"],
+                                   int(np.sum(t[0]["slens"])), t[1]))
+        stream = iter(pf)
+        try:
+            while not self.stop_requested and not self.END_OF_TRAINING:
+                # warm pause (the reference's pause keeps the trainer resident,
+                # xva_train.py:569-573)
+                while self.paused and not self.stop_requested:
+                    time.sleep(0.2)
+                if self.stop_requested:
+                    break
+                dev, ids, frames, is_ft = next(stream)
+                freeze = (self.stage == 1) or (not is_ft and self.priors_batcher is not None)
+                meta = self._steps[freeze](dev, gen)
+                self.micro_steps += 1
+                self.meter.add_frames(frames)
+
+                if self.cfg.do_loss_sorting and is_ft and "per_sample_kl" in meta:
+                    # stays on the card until the update's boundary: a read
+                    # each micro-step would wait for every step
+                    per = meta["per_sample_kl"] + meta["per_sample_mel"]
+                    if "per_sample_pitch" in meta:
+                        per = per + meta["per_sample_pitch"]
+                    pending.append((ids, per[: len(ids)]))
+
+                if self.micro_steps % self.gam == 0:
+                    if pending:
+                        values = torch.cat([p for _, p in pending]).float().cpu().tolist()
+                        for name, v in zip((n for p_ids, _ in pending for n in p_ids), values):
+                            self.loss_sampling[name] = v
+                    pending = []
+                    self.training_iters += 1
+                    fps = self.meter.step()
+                    loss = float(meta["loss"])
+                    disc_loss = float(meta["loss_disc"])
+                    self.disc_loss_window.append(disc_loss)
+                    self.graphs.add_loss(self.stage, self.training_iters, loss)
+                    if self.tb and self.training_iters % 21 == 0:
+                        # the reference's scalars (xva_train.py:765-771)
+                        it = self.training_iters
+                        self.tb.add_scalar("loss/loss", loss, it)
+                        self.tb.add_scalar("loss/disc", disc_loss, it)
+                        for k, tag in (("loss_mel", "loss/mel"), ("loss_kl", "loss/kl"),
+                                       ("loss_duration", "loss/duration")):
+                            if k in meta:
+                                self.tb.add_scalar(tag, float(meta[k]), it)
+                        self.tb.add_scalar("meta/frames/s", fps, it)
+                    self.logger.set_status(
+                        f"Stage: {self.stage} | Steps: {self.training_iters} | "
+                        f"Loss: {loss:.4f} | Disc: {disc_loss:.4f} | frames/s {int(fps)}")
+                    # the executed schedule's copy of _batch_stream's counters,
+                    # which run ahead: they seed the stream of the next train()
+                    self.finetune_counter += 1
+                    self.finetune_it = True
+                    if self.finetune_counter >= self.cfg.finetune_weight:
+                        self.finetune_it = False
+                        self.finetune_counter = 0
+
+                    if self.training_iters % self.cfg.save_step == 0:
+                        self._checkpoint_and_early_stop()
+
+                if max_steps and self.training_iters >= max_steps:
+                    break
+        finally:
+            pf.close()
+        self.ckpt.wait()
+        return {"stage": self.stage, "training_iters": self.training_iters,
+                "wall_s": time.perf_counter() - start, "frames_s": self.meter.mean()}
+
+    def _checkpoint_and_early_stop(self):
+        """Every ``save_step`` updates: the mean disc loss since the last
+        checkpoint, the window delta, the stage changes (reference
+        :782-858), then a checkpoint."""
+        si = self.stage - 1
+        avg_disc = float(np.mean(self.disc_loss_window)) if self.disc_loss_window else 0.0
+        self.disc_loss_window = []
+        loss_delta = 0.0
+        if self.stage <= 2:
+            hist = self.disc_loss_per_ckpt[si]
+            if len(hist) >= 1 and hist[-1] != 0:
+                self.deltas[si].append((hist[-1] - avg_disc) / hist[-1])
+                window = self.deltas[si][-10:]
+                loss_delta = float(np.mean(window))
+                # raw units, as the chart's target_delta line and the early
+                # stop compare them
+                self.graphs.add_delta(self.stage, self.training_iters, loss_delta)
+            hist.append(avg_disc)
+
+        if loss_delta and loss_delta < self.target_deltas[si]:
+            self.patience_count += 1
+            if self.patience_count >= self.cfg.patience:
+                if self.stage == 1:
+                    self.logger.log("Finished Stage 1. Moving on..")
+                    self.stage = 2
+                    self.patience_count = 0
+                elif self.stage == 2:
+                    self.logger.log("Finished Stage 2. Stopping training.")
+                    self.stage = 3
+                    self.END_OF_TRAINING = True
+        else:
+            self.patience_count = 0
+
+        self.ckpt.save(self.training_iters, self.checkpoint_state(), self.host_state())
+
+    # ---- previews and export ----
+
+    @torch.no_grad()
+    def output_samples(self, sentences, d_vector, out_dir: Optional[str] = None,
+                       lang_id: Optional[int] = None, max_frames: int = 512) -> List[str]:
+        """Preview wavs through the whole model (reference :892-895,
+        output_samples :1323-1365): one per sentence, its tokens padded or
+        cut to 128, ``y_lengths · hop`` samples written to
+        ``viz/<updates>/sample_<i>.wav``. ``lang_id`` defaults to the
+        finetune dataset's language (its first cache's). Sample i's noise
+        comes from a generator seeded i."""
+        from ..data.text.xva_processor import XvaTextProcessor
+
+        if lang_id is None:
+            caches = getattr(self.batcher, "caches", None)
+            lang_id = int(getattr(caches[0], "lang_id", 0)) if caches else lang_to_id("en")
+        out_dir = out_dir or os.path.join(self.cfg.output_dir, "viz", str(self.training_iters))
+        os.makedirs(out_dir, exist_ok=True)
+        tp = XvaTextProcessor()
+        c = self.model.cfg
+        dvec = torch.from_numpy(np.asarray(d_vector, np.float32)).reshape(1, -1).to(self.device)
+        lang = torch.tensor([lang_id], device=self.device)
+        was_training = self.model.training
+        self.model.eval()
+        paths = []
+        try:
+            for i, text in enumerate(sentences):
+                ids = tp.text_to_sequence(text)
+                tokens = np.pad(ids, (0, max(0, 128 - len(ids))))[:128].astype(np.int64)
+                g = torch.Generator().manual_seed(i)
+                dp_noise = torch.randn((1, 2, 128), generator=g)
+                noise = torch.randn((1, c.latent_size, max_frames), generator=g)
+                out = self.model.infer(torch.from_numpy(tokens)[None].to(self.device), dvec,
+                                       lang, max_frames=max_frames,
+                                       noise=noise.to(self.device),
+                                       dp_noise=dp_noise.to(self.device))
+                n = int(out["y_lengths"][0]) * c.hop_length
+                p = os.path.join(out_dir, f"sample_{i}.wav")
+                save_wav(p, out["wav"][0, :n].float().cpu().numpy())
+                paths.append(p)
+        finally:
+            self.model.train(was_training)
+        return paths
+
+    def export(self, voice_name: str, lang: str = "en", base_emb=None, other_embs=None,
+               out_dir: Optional[str] = None,
+               lang_capabilities: Optional[List[str]] = None) -> str:
+        """``{voice_name}.pt`` (the reference-layout fp16 state dict with the
+        ``disc.*`` subtree) and its metadata ``.json`` in ``out_dir`` (the
+        output directory by default). Returns the ``.pt``'s path."""
+        out_dir = out_dir or self.cfg.output_dir
+        path = os.path.join(out_dir, f"{voice_name}.pt")
+        export_xvapitch_v3(self.model, path, voice_name, lang=lang, base_emb=base_emb,
+                           other_embs=other_embs, disc=self.disc,
+                           lang_capabilities=lang_capabilities)
+        return path
