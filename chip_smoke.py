@@ -4,8 +4,9 @@
 
 Builds the port's CUDA kernels from ``xva_trainer_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the main paths' shapes,
-then drives the v3 serving path, the v3 data path, the v3 trainer loop and
-the v3 training step through the entry points a user calls, at the full
+then drives the v3 serving path, the v3 data path, the v3 trainer loop, the
+v3 fine-tune with priors in other languages and the v3 training step
+through the entry points a user calls, at the full
 width of the shipped "big" xVAPitch (weights from a seed). Phases, one JSON
 line each:
 
@@ -85,12 +86,22 @@ line each:
 15. ``cache_build_shapes``: the fused STFT kernel, its plain version and
    the ``torch.stft`` chain at the cache build's six slot lengths (8 clips,
    33 792 to 197 632 samples, pre-padded, linear on), summed over the
-   build's 32 groups.
+   build's 32 groups;
+16. ``multilingual`` (after phase 14, before phase 15): a French fine-tune
+   with Italian and Romanian priors through the multilingual text front end
+   (``XVA_TEXT_DIR`` an empty directory, so the port's shipped tiers), each
+   dataset tokenized in its own language: ``preprocess_audio`` →
+   ``pre_cache_g2p`` → speaker embeddings → three cache builds →
+   ``XVAPitchTrainer`` with a priors batcher weighted by language, warm
+   started from phase 5's ``.pt``: finetune, finetune and priors updates
+   in stage 1, then finetune and priors in stage 2 → the export → a French
+   ``export_wav`` request (``multilingual_phase``).
 
 Phases 4-6 are the serving path, phase 13's path the data path, phase 14's
-seeding pass and four updates the loop path, and phase 12's timed steps the
-training path: the launch counts are set to 0 just before each and read
-just after it. Every comparison runs with TF32 off.
+seeding pass and four updates the loop path, phase 16's path from
+``preprocess_audio`` to the French request the multilingual path, and phase
+12's timed steps the training path: the launch counts are set to 0 just
+before each and read just after it. Every comparison runs with TF32 off.
 Then come the line of kernels, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
 lines. Needs one CUDA device; imports no JAX.
@@ -101,6 +112,7 @@ import functools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -120,13 +132,14 @@ TOL = 1e-3                   # the repo's mean-L1 parity bar
 SR = 22050
 HOP = 256
 REPO = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()  # each phase line gives the seconds since the script started
 TEXTS = ["This is what my voice sounds like.",
          "The quick brown fox jumps over the lazy dog, twice.",
          "On the 3rd of May, 1999, we paid $4.50 for coffee."]
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw, "elapsed_s": time.perf_counter() - T0}), flush=True)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -662,28 +675,32 @@ V3_BUCKETS = [(64, 256), (96, 384), (128, 512), (192, 768)]  # (text_len, mel_le
 CLIPS_PER_BUCKET = 64
 
 
-def write_v3_dataset(path: str, rng: np.random.Generator) -> list:
-    """A seeded English fine-tune dataset in the layout users give the
-    trainer: ``wavs/*.wav`` (16-bit, 22 050 Hz) and ``metadata.csv``. 64
+def write_v3_dataset(path: str, rng: np.random.Generator, lang: str = "en",
+                     per_bucket: int = CLIPS_PER_BUCKET, words=None) -> list:
+    """A seeded fine-tune dataset in the layout users give the trainer:
+    ``wavs/*.wav`` (16-bit, 22 050 Hz) and ``metadata.csv``. ``per_bucket``
     voiced clips in each v3 bucket's frame range at hop 256 (44-256,
     257-384, 385-512 and 513-768 frames: (0.5, 2.97], (2.97, 4.46],
-    (4.46, 5.94] and (5.94, 8.9] s), each with English text whose v3 tokens
-    fit its bucket's text length. Returns [(name, frames, text)]."""
+    (4.46, 5.94] and (5.94, 8.9] s), each with text whose ``lang`` v3 tokens
+    fit its bucket's text length: ``words(rng, n)`` gives its n words
+    (English from ``WORDS`` by default), cut from the end until they fit.
+    Returns [(name, frames, text)]."""
     from xva_trainer_tpu_torch.data.audio_io import save_wav
     from xva_trainer_tpu_torch.data.text import v3_text_to_ids
 
-    to_ids = v3_text_to_ids("en")
+    to_ids = v3_text_to_ids(lang)
+    words = words or (lambda r, n: list(r.choice(WORDS, size=n)))
     os.makedirs(os.path.join(path, "wavs"))
     items, prev = [], 43
     for text_len, mel_len in V3_BUCKETS:
-        for frames in rng.integers(prev + 1, mel_len + 1, CLIPS_PER_BUCKET):
+        for frames in rng.integers(prev + 1, mel_len + 1, per_bucket):
             name = f"clip{len(items):03d}"
             save_wav(os.path.join(path, "wavs", name + ".wav"),
                      voiced_clip(rng, (frames * HOP + 0.5) / SR))
-            words = list(rng.choice(WORDS, size=max(2, int(frames) // 18)))
-            while len(to_ids(" ".join(words))) > text_len:
-                words.pop()
-            items.append((name, int(frames), " ".join(words)))
+            ws = words(rng, max(2, int(frames) // 18))
+            while len(to_ids(" ".join(ws))) > text_len:
+                ws.pop()
+            items.append((name, int(frames), " ".join(ws)))
         prev = mel_len
     with open(os.path.join(path, "metadata.csv"), "w", encoding="utf-8") as f:
         f.write("".join(f"{n}.wav|{t}\n" for n, _, t in items))
@@ -1012,7 +1029,7 @@ def data_phase(cfg, dev, smi: str, work: str):
         "speaker_embedding_l1_vs_cpu": emb_l1, "host_linear_vs_device_spec": spec_cmp,
         "tf32": False}
     emit("data", **record)
-    return launches, record, {"dataset": ds, "cache": cache, "emb": emb}
+    return launches, record, {"dataset": ds, "cache": cache, "emb": emb, "enc": enc}
 
 
 def effective_weights(module) -> dict:
@@ -1045,6 +1062,22 @@ def file_effective_weights(path: str) -> dict:
         else:
             out[k] = v.double()
     return out
+
+
+def timed_prefetcher(base, waits: list, tag=lambda item: None):
+    """A subclass of the trainer's prefetcher ``base`` that times the loop's
+    wait for each item: (seconds, ``tag(item)``) appended to ``waits``."""
+    class TimedPrefetcher(base):
+        def __iter__(self):
+            it = super().__iter__()
+            while True:
+                t = time.perf_counter()
+                item = next(it, None)
+                waits.append((time.perf_counter() - t, None if item is None else tag(item)))
+                if item is None:
+                    return
+                yield item
+    return TimedPrefetcher
 
 
 LOOP_UPDATES = 3  # updates of the first trainer; the resumed one takes one more
@@ -1088,19 +1121,6 @@ def train_loop_phase(cfg, dev, smi: str, data: dict, base_ckpt: str, work: str):
     torch.cuda.reset_peak_memory_stats()
     waits: list = []
 
-    class TimedPrefetcher(pxt.Prefetcher):
-        """The trainer's prefetcher, timing the loop's wait for each batch."""
-
-        def __iter__(self):
-            it = super().__iter__()
-            while True:
-                t = time.perf_counter()
-                item = next(it, None)
-                waits.append(time.perf_counter() - t)
-                if item is None:
-                    return
-                yield item
-
     def trainer(**kw):
         batcher = XvaBatcher([data["cache"]], 64, emb["main"])
         t0 = time.perf_counter()
@@ -1137,7 +1157,7 @@ def train_loop_phase(cfg, dev, smi: str, data: dict, base_ckpt: str, work: str):
         tr.ckpt.save = save
 
     plain_prefetcher = pxt.Prefetcher
-    pxt.Prefetcher = TimedPrefetcher
+    pxt.Prefetcher = timed_prefetcher(plain_prefetcher, waits)
     try:
         tr, batcher, build_s = trainer()
         mean_bs, seed_batches = batcher.mean_batch_size(), len(batcher)
@@ -1311,8 +1331,9 @@ def train_loop_phase(cfg, dev, smi: str, data: dict, base_ckpt: str, work: str):
         "frames_s_meter_history": meter,
         "frames_s_after_first_update": sum(meter[1:]) / len(meter[1:]),
         "frames_s_profiled_update": back.meter.history[-1],
-        "prefetch_wait_ms": [w * 1e3 for w in waits],
-        "prefetch_wait_ms_mean_after_first": float(np.mean(waits[1:]) * 1e3) if len(waits) > 1
+        "prefetch_wait_ms": [w * 1e3 for w, _ in waits],
+        "prefetch_wait_ms_mean_after_first": float(np.mean([w for w, _ in waits[1:]]) * 1e3)
+        if len(waits) > 1
         else None,
         "checkpoints": saves, "resume_seconds": resume_s, "resume_bit_identical": same,
         "export_seconds": export_s, "export_bytes": os.path.getsize(voice),
@@ -1323,6 +1344,398 @@ def train_loop_phase(cfg, dev, smi: str, data: dict, base_ckpt: str, work: str):
     for s in saves:
         s.pop("t_end", None)
     emit("train_loop", **record)
+    return launches, record
+
+# the multilingual phase's datasets: (language, directory, clips a v3 bucket)
+ML_DATASETS = (("fr", "fr_voice", 16), ("it", "it_prior", 8), ("ro", "ro_prior", 8))
+ML_BRACES = ("{K AE1 T}", "{HH AH0 L OW1}", "{W ER1 L D}")
+ML_UPDATES = 3  # finetune, finetune, priors at finetune_weight 2; then stage 2: finetune, priors
+FR_TEXT = "Bonjour, je suis une voix française et je parle lentement."
+
+
+def tier_vocabulary(lang: str):
+    """The words of 2-12 letters that ``lang``'s shipped tiers hold (its
+    lexicons and the shipped g2p capture), and the digit strings they hold,
+    each sorted."""
+    from xva_trainer_tpu_torch.data.text.preprocessing import XvaTextPreprocessor
+
+    tp = XvaTextPreprocessor(lang)  # no base directory: the shipped tiers alone
+    words = set(tp.g2p_cache_shipped)
+    for d in tp.dicts:
+        words.update(d)
+    letters = sorted(w for w in words if re.fullmatch(r"[^\W\d_]{2,12}", w))
+    digits = sorted(w for w in words if w.isdigit() and w[0] != "0" and len(w) <= 4)
+    return letters, digits
+
+
+def tier_sentence(letters, digits):
+    """``words(rng, n)`` for ``write_v3_dataset``: a brace group, then n
+    words of the tiers, the first capitalised, punctuation after every
+    fourth, a number among them where the tiers hold digits, a full stop
+    last. No colon: the lexicon pass does not strip it, so a word that only
+    a lexicon holds would be dropped before a colon (in the JAX package
+    too)."""
+    def words(rng, n):
+        ws = [str(w) for w in rng.choice(letters, size=n)]
+        ws[0] = ws[0].capitalize()
+        for i in range(2, n, 4):
+            ws[i] += str(rng.choice([",", ";", "!", "?"]))
+        ws[-1] += "."
+        if digits:
+            ws.insert(int(rng.integers(1, n + 1)), str(rng.choice(digits)))
+        return [str(rng.choice(ML_BRACES))] + ws
+    return words
+
+
+def tier_misses(tp, text: str) -> list:
+    """The words of ``text`` that the preprocessor ``tp`` looked up in its
+    g2p tiers (the user's cache, then the shipped capture) and did not find:
+    with no live backend, the words it drops."""
+    missed, lookup = [], tp.g2p_lookup
+
+    def recording(word):
+        hit = lookup(word)
+        if hit is None:
+            missed.append(word)
+        return hit
+
+    tp.g2p_lookup = recording
+    try:
+        tp.text_to_sequence(text)
+    finally:
+        del tp.g2p_lookup
+    return missed
+
+
+def tree_state(root: str) -> list:
+    return sorted((os.path.relpath(os.path.join(d, f), root),
+                   os.stat(os.path.join(d, f)).st_mtime_ns)
+                  for d, _, files in os.walk(root) for f in files)
+
+
+def multilingual_phase(cfg, dev, smi: str, data: dict, base_ckpt: str, work: str):
+    """Phase 16, ``multilingual``: the v3 fine-tune of a French voice with
+    Italian and Romanian priors, each dataset tokenized in its own language,
+    as the JAX server's v3 flow runs it when given a priors root
+    (``app/server.py::_run_v3``), with ``XVA_TEXT_DIR`` naming an empty
+    directory (a stock install: the port's shipped tiers, no live G2P) for
+    this phase only. Set-up: seeded datasets, ``fr_voice`` (64 clips, 16 a
+    v3 bucket) and ``priors/{it,ro}_prior`` (32 each), their sentences drawn
+    from the language's shipped tiers (``tier_vocabulary``), each sentence
+    checked to lose no word. The path, launch counts set to 0 before it and
+    read after it:
+
+    1. ``preprocess_audio`` → ``pre_cache_g2p(fr_voice, "fr")`` →
+       ``extract_speaker_embeddings`` (the ``data`` phase's encoder) → the
+       French ``XvaFeatureCache`` and its build → ``get_dataset_embedding``
+       → ``read_priors_datasets(["it", "ro"], [priors])`` → a cache a priors
+       directory in ``LanguageManager.parse_language_from_dir``'s language;
+    2. ``XVAPitchTrainer(XvaBatcher([fr]), cfg, priors_batcher=<weighted by
+       language>)`` at full width, warm-started from phase 5's ``.pt``, with
+       ``target_bs`` = 2 × the mean batch (``gam`` 2) and ``finetune_weight``
+       2: ``train(max_steps=3)`` runs finetune, finetune, priors in stage 1;
+       then ``stage`` = 2, as a run past its first early stop holds it, and
+       ``train(max_steps=5)`` runs finetune, priors, where only the priors
+       update freezes the posterior encoder and the decoder;
+    3. ``export(lang="fr")`` → ``export_wav`` of a French sentence.
+
+    Checks: every item cached with its dataset's ``lang_id`` and its
+    sentence's tokens; each update's kind; the French id alone in finetune
+    batches, the Italian and Romanian ids alone in priors batches; over each
+    priors update ``POST_DEC`` bit-identical and every other generator
+    parameter moved, over the stage-2 finetune update ``POST_DEC`` moved;
+    every loss finite; ``fused_stft`` 2 and ``mas`` 1 launches a micro-step;
+    the preview finite, its samples hop × its durations, a duration on each
+    of its tokens; the port's ``assets/`` untouched. Reports tokenization µs
+    a sentence (the first call, which parses the tiers, and warm), each
+    stage's seconds, micro-step ms by kind, the prefetch wait by kind, the
+    loop's mel frames a second and the request's seconds. Returns the path's
+    launch counts and the record."""
+    from xva_trainer_tpu_torch import serve
+    from xva_trainer_tpu_torch.data.language_manager import LanguageManager
+    from xva_trainer_tpu_torch.data.text import preprocessing as pp
+    from xva_trainer_tpu_torch.data.text import v3_text_to_ids
+    from xva_trainer_tpu_torch.data.xva_dataset import (XvaBatcher, XvaFeatureCache,
+                                                        extract_speaker_embeddings,
+                                                        get_dataset_embedding, lang_to_id,
+                                                        read_priors_datasets)
+    from xva_trainer_tpu_torch.ops import _cuda
+    from xva_trainer_tpu_torch.train import xvapitch_trainer as pxt
+
+    def fresh_text_caches():
+        """What a new process holds: no processor, lexicon or capture parsed."""
+        pp._PROCESSORS.clear()
+        pp.XvaTextPreprocessor._DICT_CACHE.clear()
+        pp.XvaTextPreprocessor._SHIPPED_G2P.clear()
+
+    def seconds_of(fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    root = os.path.join(work, "multilingual")
+    text_dir = os.path.join(root, "xva_text")
+    priors_root = os.path.join(root, "priors")
+    os.makedirs(text_dir)
+    assets = os.path.join(REPO, "xva_trainer_tpu_torch", "assets")
+    assets_before = tree_state(assets)
+    saved_env = os.environ.get("XVA_TEXT_DIR")
+    os.environ["XVA_TEXT_DIR"] = text_dir
+    plain_prefetcher = pxt.Prefetcher
+    waits: list = []
+    try:
+        # ---- set-up: the datasets, every word of every sentence in a tier ----
+        t0 = time.perf_counter()
+        specs, paths, vocab = {}, {}, {}
+        for i, (lang, name, per_bucket) in enumerate(ML_DATASETS):
+            letters, digits = tier_vocabulary(lang)
+            vocab[lang] = {"words": len(letters), "digit_strings": len(digits)}
+            paths[lang] = os.path.join(root if lang == "fr" else priors_root, name)
+            specs[lang] = write_v3_dataset(paths[lang], np.random.default_rng(40 + i), lang,
+                                           per_bucket, tier_sentence(letters, digits))
+        setup_s = time.perf_counter() - t0
+        misses = {lang: sorted({w for _, _, t in items
+                                for w in tier_misses(pp.get_text_preprocessor(lang, text_dir),
+                                                     t)})
+                  for lang, items in specs.items()}
+        live = {lang: pp.get_text_preprocessor(lang, text_dir).g2p_backend is not None
+                for lang in specs}
+        check(not any(misses.values()), f"multilingual: words that no tier holds: {misses}")
+
+        # ---- the path ----
+        fresh_text_caches()
+        enc, stages, builds = data["enc"], {}, {}
+        fr_ds = paths["fr"]
+        _cuda.reset_launch_counts()
+        n_pre, stages["preprocess_audio"] = seconds_of(pxt.preprocess_audio, fr_ds)
+        n_g2p, stages["pre_cache_g2p"] = seconds_of(pxt.pre_cache_g2p, fr_ds, "fr")
+        n_emb, stages["extract_speaker_embeddings"] = seconds_of(
+            extract_speaker_embeddings, fr_ds, enc, use_postprocessed=True)
+        check(n_pre == n_g2p == n_emb == len(specs["fr"]),
+              f"multilingual: {n_pre} postprocessed, {n_g2p} lines through pre_cache_g2p, "
+              f"{n_emb} embeddings of {len(specs['fr'])} items")
+
+        def build(path, lang):
+            c = XvaFeatureCache(path, v3_text_to_ids(lang), lang=lang, device=dev)
+            before = _cuda.LAUNCHES["fused_stft"]
+            _, sec = seconds_of(c.build)
+            builds[os.path.basename(path)] = {
+                "lang": lang, "items": len(c.items), "seconds": sec,
+                "fused_stft_launches": _cuda.LAUNCHES["fused_stft"] - before,
+                "stage_seconds": c.build_seconds}
+            return c
+
+        cache = build(fr_ds, "fr")
+        emb, stages["get_dataset_embedding"] = seconds_of(get_dataset_embedding, fr_ds, enc)
+        (dirs, langs), stages["read_priors_datasets"] = seconds_of(
+            read_priors_datasets, ["it", "ro"], [priors_root], speaker_encoder=enc)
+        check(langs == ["it", "ro"] and [os.path.basename(d) for d in dirs]
+              == ["it_prior", "ro_prior"], f"multilingual: priors {dirs}, {langs}")
+        caches = [build(d, LanguageManager.parse_language_from_dir(d) or "fr") for d in dirs]
+        stages["cache_builds"] = sum(b["seconds"] for b in builds.values())
+        bad_items = []
+        for c in [cache] + caches:
+            to_ids, texts = v3_text_to_ids(c.lang), {n: t for n, _, t in specs[c.lang]}
+            for it in c.items:
+                d = c.load_item(it)
+                if (d is None or int(np.asarray(d["lang_id"]).reshape(-1)[0]) != lang_to_id(c.lang)
+                        or not np.array_equal(d["tokens"],
+                                              np.asarray(to_ids(texts[it.item_id]), np.int32))):
+                    bad_items.append(f"{c.lang}:{it.item_id}")
+        check(not bad_items and [len(c.items) for c in [cache] + caches]
+              == [len(specs[c.lang]) for c in [cache] + caches]
+              and all(b["fused_stft_launches"] == -(-b["items"] // 8) for b in builds.values()),
+              f"multilingual: items with another lang_id or tokens {bad_items}; builds {builds}")
+
+        batcher = XvaBatcher([cache], 64, emb["main"])
+        priors = XvaBatcher(caches, 64, emb["main"])
+        priors.weighted_by_language = True
+        mean_bs = batcher.mean_batch_size()
+        tcfg = pxt.XvaTrainConfig(output_dir=os.path.join(root, "out"),
+                                  target_bs=int(round(2 * mean_bs)), finetune_weight=2)
+        pxt.Prefetcher = timed_prefetcher(plain_prefetcher, waits, tag=lambda item: item[3])
+        tr, trainer_s = seconds_of(pxt.XVAPitchTrainer, batcher, tcfg, cfg,
+                                   priors_batcher=priors, device=dev)
+        _, warm_s = seconds_of(tr.setup, resume=False, pretrained_ckpt=base_ckpt)
+        check(tr.gam == 2, f"multilingual: gam {tr.gam} at a mean batch of {mean_bs}")
+        names = [n for n, _ in tr.model.named_parameters()]
+        frozen = pxt.module_mask(tr.model)
+        steps, snaps = [], []
+        for freeze, real in list(tr._steps.items()):
+            def step(batch, gen, real=real, freeze=freeze):
+                if tr.micro_steps % tr.gam == 0:  # an update's first micro-step
+                    snaps.append([p.detach().clone() for p in tr.model.parameters()])
+                counts = dict(_cuda.LAUNCHES)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                meta = real(batch, gen)
+                ev[1].record()
+                steps.append({"freeze": freeze, "events": ev, "lang": batch["lang"],
+                              "frames": batch["slens"].sum(), "meta": meta,
+                              "bucket": [int(batch["tokens"].shape[1]),
+                                         int(batch["pitch"].shape[-1])],
+                              "batch": int(batch["tokens"].shape[0]),
+                              "launches": {k: _cuda.LAUNCHES[k] - counts[k] for k in counts}})
+                return meta
+            tr._steps[freeze] = step
+        seed_batches = len(batcher)
+        first, first_s = seconds_of(tr.train, max_steps=ML_UPDATES)
+        tr.stage = 2
+        second, second_s = seconds_of(tr.train, max_steps=ML_UPDATES + 2)
+        snaps.append([p.detach().clone() for p in tr.model.parameters()])
+        voice, export_s = seconds_of(tr.export, "fr_voice", lang="fr", base_emb=emb["main"],
+                                     other_embs=emb["others"].tolist())
+        out_wav = os.path.join(root, "preview_fr.wav")
+        _, request_s = seconds_of(serve.export_wav, {"xvap_ckpt": voice, "out_path": out_wav,
+                                                     "text": FR_TEXT, "lang": "fr"},
+                                  cfg=cfg, device=dev)
+        launches = dict(_cuda.LAUNCHES)  # the end of the multilingual path
+        tokens = serve.text_tokens(FR_TEXT, "fr")  # the request's, in French
+        n_ids = len(v3_text_to_ids("fr")(FR_TEXT))
+
+        # ---- tokenization a language: the first call (it parses the tiers), then warm ----
+        tokenize = {}
+        for lang, items in specs.items():
+            texts = [t for _, _, t in items]
+            fresh_text_caches()
+            t0 = time.perf_counter()
+            to_ids = v3_text_to_ids(lang)
+            n_first = len(to_ids(texts[0]))
+            first_us = (time.perf_counter() - t0) * 1e6
+            t0 = time.perf_counter()
+            n_all = [len(to_ids(t)) for t in texts]
+            tokenize[lang] = {"sentences": len(texts), "first_call_us": first_us,
+                              "warm_us_per_sentence": (time.perf_counter() - t0) * 1e6
+                              / len(texts), "first_tokens": n_first,
+                              "tokens_per_sentence": float(np.mean(n_all))}
+    finally:
+        pxt.Prefetcher = plain_prefetcher
+        if saved_env is None:
+            os.environ.pop("XVA_TEXT_DIR", None)
+        else:
+            os.environ["XVA_TEXT_DIR"] = saved_env
+
+    # ---- the updates: their kinds, languages, freezes and launches ----
+    torch.cuda.synchronize()
+    kinds = [t for _, t in waits if t is not None]  # the stream's is_ft a micro-step
+    micro = len(steps)
+    check(micro == (ML_UPDATES + 2) * tr.gam and len(kinds) == micro,
+          f"multilingual: {micro} micro-steps, {len(kinds)} batches streamed")
+    for s, is_ft in zip(steps, kinds):
+        s["kind"] = "finetune" if is_ft else "priors"
+        s["langs"] = sorted({int(x) for x in s["lang"].cpu().tolist()})
+        s["event_ms"] = s["events"][0].elapsed_time(s["events"][1])
+        s["frames"] = int(s["frames"])
+        s["not_finite"] = sorted(k for k, v in s["meta"].items()
+                                 if not bool(torch.isfinite(v).all()))
+    update_kinds = []
+    for u in range(micro // tr.gam):
+        group = {s["kind"] for s in steps[u * tr.gam:(u + 1) * tr.gam]}
+        update_kinds.append(group.pop() if len(group) == 1 else "mixed")
+    want_kinds = ["finetune", "finetune", "priors", "finetune", "priors"]
+    ids = {k: lang_to_id(k) for k in ("fr", "it", "ro")}
+    wrong_lang = [(i, s["kind"], s["langs"]) for i, s in enumerate(steps)
+                  if not s["langs"] or not set(s["langs"]) <= (
+                      {ids["fr"]} if s["kind"] == "finetune" else {ids["it"], ids["ro"]})]
+    check(update_kinds == want_kinds and not wrong_lang,
+          f"multilingual: updates {update_kinds} (want {want_kinds}); batches with other "
+          f"language ids {wrong_lang}")
+    # freezes: stage 1 freezes every update; in stage 2 the priors update only
+    check([s["freeze"] for s in steps]
+          == [True] * (ML_UPDATES * tr.gam) + [False] * tr.gam + [True] * tr.gam,
+          f"multilingual: freeze flags {[s['freeze'] for s in steps]}")
+    moves = []
+    for u in range(len(snaps) - 1):  # bit patterns: a NaN equals itself
+        moved = [not torch.equal(a.view(torch.int32), b.view(torch.int32))
+                 for a, b in zip(snaps[u], snaps[u + 1])]
+        moves.append({
+            "update": u + 1, "kind": update_kinds[u], "stage": 1 if u < ML_UPDATES else 2,
+            "post_dec_moved": sum(m for m, f in zip(moved, frozen) if f),
+            "post_dec_tensors": sum(frozen),
+            "rest_moved": sum(m for m, f in zip(moved, frozen) if not f),
+            "rest_tensors": len(frozen) - sum(frozen),
+            "rest_unmoved": [n for n, m, f in zip(names, moved, frozen) if not f and not m],
+            "not_finite_after": [n for n, p in zip(names, snaps[u + 1])
+                                 if not bool(torch.isfinite(p).all())]})
+    del snaps
+    check(all(m["post_dec_moved"] == 0 and not m["rest_unmoved"]
+              for m in moves if m["kind"] == "priors")
+          and moves[ML_UPDATES]["post_dec_moved"] == moves[ML_UPDATES]["post_dec_tensors"],
+          f"multilingual: parameter moves by update {moves}")
+    check(not any(s["not_finite"] for s in steps) and not any(m["not_finite_after"] for m in moves),
+          "multilingual: losses or parameters not finite: "
+          f"{[(i, s['kind'], s['not_finite']) for i, s in enumerate(steps) if s['not_finite']]}, "
+          f"{[(m['update'], m['not_finite_after'][:5]) for m in moves if m['not_finite_after']]}")
+    per_step = [s["launches"] for s in steps]
+    want = {"fused_stft": sum(b["fused_stft_launches"] for b in builds.values())
+            + 2 * (micro + seed_batches), "mas": micro + seed_batches}
+    check(all(c == {"fused_stft": 2, "mas": 1} for c in per_step)
+          and all(launches[k] == v for k, v in want.items()),
+          f"multilingual: launches a micro-step {per_step}; the path {launches}, want {want}")
+
+    # ---- the French preview: its samples follow its tokens ----
+    sr, pcm = wavfile.read(out_wav)
+    model = serve.load_xvapitch(voice, cfg, device=dev)
+    n_tokens = int((tokens > 0).sum())
+    g = torch.Generator().manual_seed(serve.NOISE_SEED)  # synthesize_v3's draws
+    dp_noise = torch.randn((1, 2, serve.TEXT_TOKENS), generator=g)
+    noise = torch.randn((1, cfg.latent_size, serve.MAX_FRAMES), generator=g)
+    emb_v = serve.resolve_voice_emb(voice)
+    with torch.no_grad():
+        out = model.infer(torch.from_numpy(tokens)[None].to(dev),
+                          torch.from_numpy(emb_v)[None].to(dev),
+                          torch.tensor([lang_to_id("fr")], device=dev),
+                          max_frames=serve.MAX_FRAMES, noise=noise.to(dev),
+                          dp_noise=dp_noise.to(dev))
+    durations = out["durations"][0].cpu()
+    frames = int(out["y_lengths"][0])
+    del model, out
+    check(sr == SR and len(pcm) > 0 and np.isfinite(np.asarray(pcm, np.float64)).all()
+          and np.abs(pcm).max() > 0 and n_tokens == min(n_ids, serve.TEXT_TOKENS)
+          and int((durations > 0).sum()) == n_tokens
+          and frames == min(int(durations.sum()), serve.MAX_FRAMES)
+          and len(pcm) == frames * HOP,
+          f"multilingual: the French request wrote {len(pcm)} samples at {sr} Hz; "
+          f"{n_tokens} tokens, {int((durations > 0).sum())} with a duration, "
+          f"{frames} frames of {int(durations.sum())}")
+    assets_unchanged = tree_state(assets) == assets_before
+    check(assets_unchanged, "multilingual: a file under the port's assets/ changed")
+
+    by_kind = {}
+    for s in steps:
+        rec = by_kind.setdefault(s["kind"], {"event_ms": [], "mel_frames": [], "buckets": []})
+        rec["event_ms"].append(s["event_ms"])
+        rec["mel_frames"].append(s["frames"])
+        rec["buckets"].append(s["bucket"] + [s["batch"]])
+    for rec in by_kind.values():
+        rec["median_ms"] = float(np.median(rec["event_ms"]))
+    wait_ms = {"finetune": [w * 1e3 for w, t in waits if t is True],
+               "priors": [w * 1e3 for w, t in waits if t is False]}
+    record = {
+        "gpu": smi, "config": "XVAPitchConfig() + VitsDiscriminator(), seeded, warm-started",
+        "xva_text_dir_files_after": os.listdir(text_dir), "live_g2p_backend": live,
+        "tier_vocabulary": vocab, "items": {k: len(v) for k, v in specs.items()},
+        "set_up_seconds": setup_s, "words_no_tier_holds": misses, "stage_seconds": stages,
+        "cache_builds": builds, "tokenize": tokenize, "mean_batch": mean_bs, "gam": tr.gam,
+        "target_bs": tcfg.target_bs, "finetune_weight": tcfg.finetune_weight,
+        "seeding_batches": seed_batches, "trainer_build_seconds": trainer_s,
+        "warm_start_seconds": warm_s, "seed_seconds": tr.seed_seconds,
+        "train_stage1": {**first, "seconds": first_s}, "train_stage2": {**second,
+                                                                        "seconds": second_s},
+        "frames_s_meter_history": list(tr.meter.history), "update_kinds": update_kinds,
+        "micro_steps": [{k: s[k] for k in ("kind", "freeze", "langs", "bucket", "batch",
+                                           "frames", "event_ms", "launches", "not_finite")}
+                        for s in steps],
+        "micro_step_ms_by_kind": by_kind, "prefetch_wait_ms": wait_ms,
+        "parameter_moves": moves, "export_seconds": export_s,
+        "french_request": {"text": FR_TEXT, "seconds": request_s, "tokens": n_tokens,
+                           "frames": frames, "samples": len(pcm),
+                           "audio_seconds": len(pcm) / SR},
+        "assets_unchanged": assets_unchanged, "launches": launches, "tf32": False}
+    emit("multilingual", **record)
+    del tr
+    torch.cuda.empty_cache()
     return launches, record
 
 
@@ -1659,6 +2072,7 @@ def main() -> int:
     try:
         data_launches, data, data_ctx = data_phase(cfg_m, dev, smi, data_work)
         loop_launches, loop = train_loop_phase(cfg_m, dev, smi, data_ctx, ckpt, data_work)
+        ml_launches, _ = multilingual_phase(cfg_m, dev, smi, data_ctx, ckpt, data_work)
     finally:
         shutil.rmtree(data_work, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -1695,7 +2109,7 @@ def main() -> int:
          sums={k: v for k, v in build.items() if k.startswith("fused_stft_32_")}, gpu=smi)
     train_launches, train = train_phases(cfg_m, dev)
     by_path = {"serve": launches, "data": data_launches, "loop": loop_launches,
-               "train": train_launches}
+               "multilingual": ml_launches, "train": train_launches}
 
     kernels = [{
         "name": "fused_stft", "route": "cuda",
@@ -1741,6 +2155,7 @@ def main() -> int:
     missing = [p + ":" + k for p, ks in (("serve", ["fused_stft"]),
                                          ("data", ["fused_stft", "mas"]),
                                          ("loop", ["fused_stft", "mas"]),
+                                         ("multilingual", ["fused_stft", "mas"]),
                                          ("train", ["fused_stft", "mas"]))
                for k in ks if by_path[p][k] < 1]
     check(not missing, f"a main path launched no {missing}")

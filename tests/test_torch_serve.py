@@ -77,10 +77,32 @@ def test_processor_with_ipa_g2p_matches_jax():
     assert len(ours) > 8
 
 
-def test_multilingual_front_end_is_refused(tmp_path, monkeypatch):
+ML_TEXTS = {
+    "en": "Dr. Smith read 21 books in 1999, {HH AH0 L OW1}!",
+    "fr": "Bonjour le monde, 12 chats et {K AE1 T} chiens.",
+    "it": "La casa rossa è bella; 100 gatti {K AE1 T}!",
+    "ro": "Casa mea este frumoasă, doi câini {K AE1 T}.",
+    "de": "Guten Tag, {G UW1 T AH0 N} Welt!",
+    "sv": "Hej världen, en katt och 5 hundar.",
+    "wo": "Xamul yoon, ndank ndank!",
+    "zh": "你好，世界。",
+}
+
+
+@pytest.mark.parametrize("lang", sorted(ML_TEXTS))
+def test_multilingual_text_ids_match_jax(lang, tmp_path, monkeypatch):
+    """With ``XVA_TEXT_DIR`` naming a directory, ``v3_text_to_ids`` is the
+    multilingual preprocessor in both packages: the same ids, a list in
+    both. The variable is read at each call: unset, both give the rule G2P's
+    int32 array again."""
     monkeypatch.setenv("XVA_TEXT_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="XVA_TEXT_DIR"):
-        v3_text_to_ids("de")
+    text = ML_TEXTS[lang]
+    ours, ref = v3_text_to_ids(lang)(text), jax_text_to_ids(lang)(text)
+    assert type(ours) is type(ref) is list and ours == ref and ours
+    monkeypatch.delenv("XVA_TEXT_DIR")
+    ours, ref = v3_text_to_ids(lang)(text), jax_text_to_ids(lang)(text)
+    assert isinstance(ours, np.ndarray) and ours.dtype == ref.dtype
+    assert np.array_equal(ours, ref)
 
 
 def test_language_ids_match_jax():

@@ -1,6 +1,7 @@
-"""v3 text front end of the port: copies of the JAX package's
-``data/text`` modules on its default tokenizer path (``xva_processor``,
-``cleaners``, ``numbers``, ``symbols``, ``ipa`` and their JSON tables)."""
+"""Text front ends of the port: copies of the JAX package's ``data/text``
+modules (the v3 rule G2P ``xva_processor``, the multilingual
+``preprocessing`` with its G2P backends and the shipped tiers under
+``assets/``, the v2 ``processor`` and cleaners, and their tables)."""
 from __future__ import annotations
 
 import os
@@ -9,16 +10,14 @@ from .xva_processor import XvaTextProcessor
 
 
 def v3_text_to_ids(lang: str = "en"):
-    """The v3 tokenizer: text → int32 xVAARPAbet ids.
-
-    The JAX package's default branch of ``data/text/__init__.py::v3_text_to_ids``
-    (the self-contained rule G2P). Its ``XVA_TEXT_DIR`` branch, the
-    multilingual preprocessor, is not ported yet: with that variable set this
-    raises rather than give other ids than the JAX package would.
-    """
+    """The v3 tokenizer, as the JAX package's ``data/text/__init__.py``
+    selects it: the multilingual preprocessor when ``XVA_TEXT_DIR`` names a
+    directory (read at each call; a list of ids), else the self-contained
+    rule G2P (an int32 array)."""
     base_dir = os.environ.get("XVA_TEXT_DIR")
     if base_dir and os.path.isdir(base_dir):
-        raise NotImplementedError(
-            "XVA_TEXT_DIR selects the multilingual text preprocessor, which the "
-            "port does not have yet; unset it to use the rule G2P")
+        from .preprocessing import get_text_preprocessor
+
+        tp = get_text_preprocessor(lang, base_dir)
+        return lambda text: tp.text_to_sequence(text)[0]
     return XvaTextProcessor().text_to_sequence

@@ -7,8 +7,8 @@ card and its spectrogram, the freeze helpers, ``make_v3_step``,
 ``make_v3_loss_eval`` and ``XVAPitchTrainer`` (setup, resume and warm
 start, the loss-seeding pass, the finetune/priors batch stream, the loop
 with its stage 1 → 2 → end schedule, rolling checkpoints, previews and the
-xVASynth export). ``pre_cache_g2p`` belongs to the multilingual text front
-end, which is not ported yet.
+xVASynth export), and ``pre_cache_g2p``, which warms the multilingual text
+front end's g2p caches before a cache build.
 
 The step is the reference's per-micro-step generator pass then
 discriminator pass (python/xvapitch/xva_train.py:652-706), in two passes:
@@ -207,6 +207,30 @@ def preprocess_audio(dataset_path: str, progress=None) -> int:
         if progress:
             progress(i + 1, len(files))
     return done
+
+
+def pre_cache_g2p(dataset_paths, lang: str = "en",
+                  text_base_dir: Optional[str] = None) -> int:
+    """Run every metadata line through the language's preprocessor once, so
+    that the user's on-disk g2p cache is warm before the cache build
+    (reference dataset.py pre_cache_g2p:687-721). The preprocessor's base
+    directory is ``text_base_dir``, else ``XVA_TEXT_DIR``; with neither a
+    directory, nothing runs. Returns the lines tokenized."""
+    from ..data.dataset import read_metadata
+    from ..data.text.preprocessing import get_text_preprocessor
+
+    text_base_dir = text_base_dir or os.environ.get("XVA_TEXT_DIR")
+    if not text_base_dir or not os.path.isdir(text_base_dir):
+        return 0
+    tp = get_text_preprocessor(lang, text_base_dir)
+    n = 0
+    for d in ([dataset_paths] if isinstance(dataset_paths, str) else dataset_paths):
+        for it in read_metadata(d):
+            tp.text_to_sequence(it.text)
+            n += 1
+    if tp._g2p_cache_dirty:
+        tp.save_g2p_cache()
+    return n
 
 
 # ---------------- the step ----------------
