@@ -5,10 +5,11 @@
 Builds the port's CUDA kernels from ``xva_trainer_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the main paths' shapes,
 then drives the v3 serving path, the v3 data path, the v3 trainer loop, the
-v3 fine-tune with priors in other languages and the v3 training step
-through the entry points a user calls, at the full
-width of the shipped "big" xVAPitch (weights from a seed). Phases, one JSON
-line each:
+v3 fine-tune with priors in other languages, the v2 FastPitch fine-tune
+with its preview and v2 inference, and the v3 training step through the
+entry points a user calls, at the full width of the shipped "big" xVAPitch
+and of ``FastPitchConfig()`` (weights from a seed). Phases, one JSON line
+each:
 
 1. ``device``: the card, as torch and ``nvidia-smi`` name it;
 2. ``kernels``: every hand-written kernel, built from source;
@@ -35,10 +36,11 @@ line each:
 7. ``model_gpu_vs_cpu``: one short request through the model on the card and
    on the CPU;
 8. ``mas``: the MAS kernel against its plain version, paths identical, in
-   14 cases (``mas_case``), each in the four value/mask type pairs; its
+   16 cases (``mas_case``), each in the four value/mask type pairs; its
    time at the trainer's largest bucket (B = 64, 192 tokens x 768 frames,
-   ragged) beside the plain version's, and at the four v3 buckets, each
-   with its bound at the items' own lengths and the full tensors';
+   ragged) beside the plain version's, at the four v3 buckets, each with
+   its bound at the items' own lengths and the full tensors', and at the
+   five v2 buckets at FastPitch's stage-1 batch of 46, bf16 values;
 9. ``train_gpu_vs_cpu``: one fp32 step (AMP and TF32 off, SGD on both
    models) of the full-width model and discriminator at B = 2 on the
    64 x 256 bucket, from the same weights, batch and draws, on the card and
@@ -95,13 +97,24 @@ line each:
    ``XVAPitchTrainer`` with a priors batcher weighted by language, warm
    started from phase 5's ``.pt``: finetune, finetune and priors updates
    in stage 1, then finetune and priors in stage 2 → the export → a French
-   ``export_wav`` request (``multilingual_phase``).
+   ``export_wav`` request (``multilingual_phase``);
+17. ``fastpitch`` (after phase 16, on the ``data`` phase's wavs and 64
+   longer ones): the v2 path as the JAX package's v2 pipeline runs
+   FastPitch, at full width: the v2 ``FeatureCache`` build → a batcher a
+   stage (``stage_batch_size``, the ARPAbet mix) → ``FastPitchTrainer``
+   warm-started from a seeded base ``.pt`` → stages 1-4, two epochs each,
+   each ended by its own hand-off (durations extracted after stage 1) → a
+   bit-identical resume and one more epoch → the export → Griffin-Lim
+   previews → three ``V2InferenceModel`` requests with a seeded v2 HiFi-GAN
+   generator; before it, an fp32 stage-1 and stage-3 step on the card
+   against the CPU (``fastpitch_phase``).
 
 Phases 4-6 are the serving path, phase 13's path the data path, phase 14's
 seeding pass and four updates the loop path, phase 16's path from
-``preprocess_audio`` to the French request the multilingual path, and phase
-12's timed steps the training path: the launch counts are set to 0 just
-before each and read just after it. Every comparison runs with TF32 off.
+``preprocess_audio`` to the French request the multilingual path, phase
+17's path from the cache build to the last v2 request the fastpitch path,
+and phase 12's timed steps the training path: the launch counts are set to
+0 just before each and read just after it. Every comparison runs with TF32 off.
 Then come the line of kernels, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
 lines. Needs one CUDA device; imports no JAX.
@@ -109,6 +122,7 @@ lines. Needs one CUDA device; imports no JAX.
 from __future__ import annotations
 
 import functools
+import gzip
 import json
 import math
 import os
@@ -417,17 +431,21 @@ MAS_CASES = {  # name: (B, t_x, t_y)
     "long_text": (2, 1100, 1500), "start_minus_inf": (8, 192, 768),
     "minus_inf_column": (8, 192, 768), "nan_under_mask": (8, 192, 768),
     "fractional_mask": (8, 192, 768), "non_rectangular_mask": (8, 192, 768),
-    "odd_frames": (4, 50, 333), "fastpitch": (16, 256, 896), "long_frames": (2, 40, 7000)}
+    "odd_frames": (4, 50, 333), "fastpitch": (16, 256, 896), "long_frames": (2, 40, 7000),
+    "fastpitch_stage1": (46, 256, 896)}
 MAS_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
              (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
 # cases in which every active frame holds one nonzero path entry
 MAS_ONE_PER_FRAME = ("trainer", "one_token", "square", "more_tokens", "extreme", "bf16",
-                     "long_text", "fractional_mask", "odd_frames", "fastpitch",
+                     "long_text", "fractional_mask", "odd_frames", "fastpitch", "fastpitch_stage1",
                      "long_frames")
 # the v3 batcher's buckets (XvaBatcher.batch_size_for, MAX_BUCKET_SCALE = 2):
 # (B, t_x, t_y, the previous bucket's t_y)
 MAS_BUCKETS = [(128, 64, 256, 128), (128, 96, 384, 256), (96, 128, 512, 384),
                (64, 192, 768, 512)]
+# the v2 buckets (DEFAULT_BUCKETS) at FastPitch's stage-1 batch, as MAS_BUCKETS
+MAS_V2_BUCKETS = [(46, 64, 256, 43), (46, 96, 384, 256), (46, 128, 512, 384),
+                  (46, 192, 768, 512), (46, 256, 896, 768)]
 
 
 def mas_case(name: str, dev, value_dtype=None, mask_dtype=torch.float32, seed: int = 0):
@@ -438,7 +456,8 @@ def mas_case(name: str, dev, value_dtype=None, mask_dtype=torch.float32, seed: i
     scratch); -inf at (0, 0) (the backtrack walks below x = 0), a -inf column
     at frame 0, NaN under the mask, a fractional mask, zeros inside the
     lengths; an odd t_y (bf16 rows staged without cp.async); FastPitch's
-    256 x 896; 7 000 frames of 40 tokens (the bits in scratch, one warp). The
+    256 x 896, and at its stage-1 batch of 46; 7 000 frames of 40 tokens (the
+    bits in scratch, one warp). The
     value is bf16 for "bf16" unless ``value_dtype`` says otherwise. The same
     cases as tests/test_torch_kernels_cuda.py."""
     rng = np.random.default_rng(seed)
@@ -1739,6 +1758,609 @@ def multilingual_phase(cfg, dev, smi: str, data: dict, base_ckpt: str, work: str
     return launches, record
 
 
+# ---------------- 17. fastpitch: the v2 FastPitch path ----------------
+
+V2_BUCKETS = [(64, 256), (96, 384), (128, 512), (192, 768), (256, 896)]  # DEFAULT_BUCKETS
+FP_STAGE1_BATCH = 46  # stage_batch_size(32, 1, 10.4 s): the stage-1 batch at these clips
+FP_TEXTS = ["The quick brown fox jumps over a lazy dog.", "Seven bright voices sing of rain."]
+V2_REQUESTS = ["Hello there, this is my voice.", "Quiet rivers run under old stone bridges.",
+               "The harbour at dawn was calm and grey."]
+
+
+def write_v2_dataset(path: str, rng: np.random.Generator, reuse_wavs: str | None,
+                     per_bucket: int = CLIPS_PER_BUCKET, buckets=V2_BUCKETS) -> list:
+    """A seeded English v2 dataset: ``per_bucket`` clips in each v2 bucket's
+    frame range (<= 256, 257-384, 385-512, 513-768, 769-896), the clips of
+    ``reuse_wavs`` (the ``data`` phase's, which fill the first four ranges)
+    linked in and the rest written, each with English text whose v2 tokens
+    (``TextProcessor().encode``, one a character) fit its bucket. Returns
+    [(name, frames, text)]."""
+    from xva_trainer_tpu_torch.data.audio_io import save_wav
+    from xva_trainer_tpu_torch.data.text.processor import TextProcessor
+
+    enc = TextProcessor().encode
+    os.makedirs(os.path.join(path, "wavs"))
+    have = {}
+    if reuse_wavs:
+        for f in sorted(os.listdir(reuse_wavs)):
+            src = os.path.join(reuse_wavs, f)
+            frames = (os.path.getsize(src) - 44) // 2 // HOP  # 16-bit mono PCM
+            have.setdefault(next(i for i, (_, m) in enumerate(buckets) if frames <= m),
+                            []).append((f, src))
+    items, prev = [], 43
+    for b, (text_len, mel_len) in enumerate(buckets):
+        reused = have.get(b, [])[:per_bucket]
+        for j, (f, src) in enumerate(reused):
+            dst = os.path.join(path, "wavs", f"v2_{len(items) + j:03d}.wav")
+            try:
+                os.link(src, dst)
+            except OSError:
+                shutil.copyfile(src, dst)
+        fresh = rng.integers(prev + 1, mel_len + 1, per_bucket - len(reused))
+        for j, frames in enumerate(fresh):
+            save_wav(os.path.join(path, "wavs", f"v2_{len(items) + len(reused) + j:03d}.wav"),
+                     voiced_clip(rng, (frames * HOP + 0.5) / SR))
+        for i in range(per_bucket):
+            name = f"v2_{len(items):03d}"
+            frames = (os.path.getsize(os.path.join(path, "wavs", name + ".wav")) - 44) // 2 // HOP
+            ws = list(rng.choice(WORDS, size=max(2, int(frames) // 14)))
+            while len(enc(" ".join(ws))) > min(text_len, frames):
+                ws.pop()
+            items.append((name, int(frames), " ".join(ws)))
+        prev = mel_len
+    with open(os.path.join(path, "metadata.csv"), "w", encoding="utf-8") as f:
+        f.write("".join(f"{n}.wav|{t}\n" for n, _, t in items))
+    return items
+
+
+def fastpitch_batch(rng: np.random.Generator, n: int, text_len: int, mel_len: int) -> dict:
+    """A collated v2 batch (numpy, as ``BucketBatcher`` emits it with the fp16
+    feed): seeded tokens, log-mels, normalised pitch with unvoiced frames,
+    energy, ragged lengths (item 0 full), and durations summing to each
+    item's frames."""
+    in_lens = rng.integers(text_len // 2, text_len + 1, n).astype(np.int32)
+    mel_lens = rng.integers(mel_len // 2, mel_len + 1, n).astype(np.int32)
+    in_lens[0], mel_lens[0] = text_len, mel_len
+    b = {"tokens": np.zeros((n, text_len), np.int32),
+         "mel": np.zeros((n, mel_len, 80), np.float32),
+         "pitch": np.zeros((n, 1, mel_len), np.float32),
+         "energy": np.zeros((n, mel_len), np.float32),
+         "durs": np.zeros((n, text_len), np.float32), "in_lens": in_lens, "mel_lens": mel_lens}
+    for i in range(n):
+        t, m = in_lens[i], mel_lens[i]
+        b["tokens"][i, :t] = rng.integers(1, 148, t)
+        b["mel"][i, :m] = rng.standard_normal((m, 80)) - 4.0
+        p = rng.standard_normal(m)
+        p[rng.random(m) < 0.3] = 0.0
+        b["pitch"][i, 0, :m] = p
+        b["energy"][i, :m] = np.abs(rng.standard_normal(m)) * 20
+        cuts = np.sort(rng.choice(np.arange(1, m), t - 1, replace=False))
+        b["durs"][i, :t] = np.diff(np.concatenate([[0], cuts, [m]]))
+    for k in ("mel", "pitch", "energy"):
+        b[k] = b[k].astype(np.float16)
+    return b
+
+
+def fastpitch_cache_vs_cpu(cache, picks: list) -> dict:
+    """Cached v2 items against the port's plain path on the CPU: each pick's
+    wav featurized again by ``featurize_batch(mode="mel", device="cpu")``,
+    its text tokenized again. The bars (the ``data`` phase's): log-mel within 1e-3 mean
+    abs, and within 1e-3 max abs where the mel magnitude is at least
+    LOG_FLOOR; energy within 1e-3 of its max abs; pitch voiced alike on more
+    than 95% of frames and within 2% in Hz on 95% of the frames both call
+    voiced; tokens and ``wav_len`` equal."""
+    from xva_trainer_tpu_torch.data.audio_io import load_wav
+    from xva_trainer_tpu_torch.data.text.processor import TextProcessor
+    from xva_trainer_tpu_torch.ops.features import featurize_batch
+
+    enc = TextProcessor().encode
+    by_id = {it.item_id: it for it in cache.items}
+    waves = []
+    for name, _, _ in picks:
+        y, _ = load_wav(by_id[name].wav_path, target_sr=SR)
+        waves.append(y[: len(y) // HOP * HOP])
+    ref = featurize_batch(waves, mode="mel", device="cpu")
+    rows = []
+    for (name, frames, text), y, r in zip(picks, waves, ref):
+        d = cache.load_item(by_id[name])
+        err = np.abs(d["mel"] - r["mel"])
+        strong = r["mel"] >= np.log(LOG_FLOOR)
+        va, vb = d["pitch"] > 0, r["pitch"] > 0
+        both = va & vb
+        rows.append({
+            "item": name, "frames": frames, "shape": list(d["mel"].shape),
+            "mel_mean_abs_err": float(err.mean()), "mel_max_abs_err": float(err.max()),
+            "mel_above_floor_max_abs_err": float(err[strong].max()) if strong.any() else 0.0,
+            "energy_max_rel_err": float(np.abs(d["energy"] - r["energy"]).max()
+                                        / np.abs(r["energy"]).max()),
+            "voicing_agreement": float((va == vb).mean()), "voiced_frames": int(both.sum()),
+            "f0_p95_rel_err": float(np.percentile(np.abs(d["pitch"][both] - r["pitch"][both])
+                                                  / r["pitch"][both], 95)) if both.any() else 0.0,
+            "tokens_equal": bool(np.array_equal(d["tokens"], enc(text))),
+            "wav_len_equal": int(np.asarray(d["wav_len"]).reshape(-1)[0]) == len(y)})
+    worst = {k: max(r[k] for r in rows) for k in rows[0] if k.endswith("_err")}
+    worst["voicing_agreement"] = min(r["voicing_agreement"] for r in rows)
+    check(all(r["shape"] == [80, r["frames"]] and r["tokens_equal"] and r["wav_len_equal"]
+              and r["voiced_frames"] > 0 for r in rows)
+          and worst["mel_mean_abs_err"] < TOL and worst["mel_above_floor_max_abs_err"] < TOL
+          and worst["energy_max_rel_err"] < TOL and worst["voicing_agreement"] > 0.95
+          and worst["f0_p95_rel_err"] < 0.02,
+          f"fastpitch: cached items against the CPU: {worst}, {rows}")
+    return {"items": rows, "worst": worst}
+
+
+def fastpitch_steps_vs_cpu(base_pt: str, fp_cfg, dev) -> dict:
+    """One fp32 stage-1 step (the aligner; MAS on the card, its plain
+    version on the CPU) and one fp32 stage-3 step (extracted durations), at
+    full width, B = 2 on the 64 x 256 bucket, dropout off, SGD, from the
+    base weights: on the card, on the CPU, and on the CPU with PyTorch's
+    native convolutions (oneDNN off). The card's losses within 1e-3
+    relative of the CPU's; each updated tensor within ``update_mismatch``'s
+    bar of the nearer CPU step, at the CPU's own noise scale (its two
+    convolution implementations against each other)."""
+    from xva_trainer_tpu_torch.interop.fastpitch_map import load_fastpitch_checkpoint
+    from xva_trainer_tpu_torch.models.fastpitch import FastPitch
+    from xva_trainer_tpu_torch.train import fastpitch_trainer as pft
+
+    cpu = torch.device("cpu")
+    batch = fastpitch_batch(np.random.default_rng(41), 2, 64, 256)
+    out = {}
+    for stage, use_gt in ((1, False), (3, True)):
+        keys = pft.batch_keys_for(stage, use_gt, True)
+        metas, news, old = {}, {}, None
+        for name, dv in (("gpu", dev), ("cpu", cpu), ("cpu_native_conv", cpu)):
+            model = FastPitch(fp_cfg)
+            load_fastpitch_checkpoint(base_pt, model)
+            model.to(dv).eval()
+            old = old or state_of(model)
+            torch.backends.mkldnn.enabled = name != "cpu_native_conv"
+            step = pft.make_stage_step(model, stage, Sgd(model.parameters()),
+                                       use_gt_durs=use_gt, use_amp=False, device_prior=True)
+            tb = {k: torch.from_numpy(v).to(dv) for k, v in batch.items() if k in keys}
+            tb = {k: v.long() if v.dtype == torch.int32 else v for k, v in tb.items()}
+            meta = step(tb, 0.5 if stage == 1 else 0.0)
+            metas[name] = {k: float(v) for k, v in meta.items()}
+            news[name] = state_of(model)
+        torch.backends.mkldnn.enabled = True
+        rel = {k: abs(metas["gpu"][k] - metas["cpu"][k]) / max(abs(metas["cpu"][k]), 1e-30)
+               for k in metas["cpu"]}
+        (cpu_worst, _), = [update_mismatch(o, [r], n) for o, r, n in
+                           zip(old, news["cpu"], news["cpu_native_conv"])]
+        scale = max(1.0, cpu_worst[0][0])
+        (held, _), = [update_mismatch(o, [r, r2], n, scale) for o, r, r2, n in
+                      zip(old, news["cpu"], news["cpu_native_conv"], news["gpu"])]
+        out[f"stage{stage}"] = {"losses": metas["cpu"], "loss_rel_err": rel,
+                                "cpu_noise_scale": scale, "worst_updates": held,
+                                "cpu_onednn_vs_native": cpu_worst}
+        check(max(rel.values()) < 1e-3 and held[0][0] <= 1.0
+              and all(np.isfinite(v) for v in metas["gpu"].values()),
+              f"fastpitch: fp32 stage-{stage} step card vs CPU: loss rel {rel}, worst update "
+              f"{held[0]} at the CPU noise scale {scale}")
+    return out
+
+
+def fastpitch_phase(dev, smi: str, work: str, reuse_wavs: str | None, fp_cfg=None,
+                    gen_cfg=None, per_bucket: int = CLIPS_PER_BUCKET, buckets=V2_BUCKETS,
+                    target_bs: int = 256) -> tuple:
+    """Phase 17, ``fastpitch``: the v2 path as the JAX package's
+    ``_train_v2_pipeline`` runs stages 1-4, then its ``V2InferenceModel``, at
+    the full width of ``FastPitchConfig()`` (seeded weights):
+
+    1. a seeded English dataset, 64 clips in each v2 bucket (the ``data``
+       phase's wavs and 64 longer ones), the shipped CMUdict written as
+       ``<dataset>/cmudict.txt`` in cmudict-0.7b's layout; a base ``.pt``
+       exported from seeded weights;
+       before the path, one fp32 stage-1 and one fp32 stage-3 step on the
+       card and on the CPU (``fastpitch_steps_vs_cpu``);
+    2. the path (launch counts set to 0 just before it): the
+       ``FeatureCache`` build; ``max_file_len_sec`` and a batcher factory
+       with ``stage_batch_size(32, stage, ...)`` and the ARPAbet mix at
+       p = 0.3; ``FastPitchTrainer(cache, FastPitchTrainConfig(32, 256,
+       AMP))`` warm-started from the base; ``train`` through stages 1-4, two
+       epochs each, each stage ended by its own ``finish_epoch`` hand-off
+       with the early-stop state made ``finished`` by hand before its second
+       epoch (the 1 → 2 hand-off extracts the durations); a second trainer
+       resumed from the last checkpoint, bit-identical, one more epoch of
+       stage 4; the export; ``output_samples`` of two sentences; the export
+       read back into a ``V2InferenceModel`` with a seeded full-width v2
+       HiFi-GAN generator, three requests (``tts`` and ``export_wav``);
+    3. checks (every cached item, launches by micro-step and stage, the
+       freezes over each stage's first update, durations, finite losses, the
+       resume, the export's keys, the requests' lengths, the card's mel
+       against the CPU's, Griffin-Lim's samples) and 8 cached items against
+       the CPU; then one stage-3 pass of 10 micro-steps (an update) under
+       the profiler, outside the path.
+
+    ``fp_cfg``, ``gen_cfg``, ``per_bucket``, ``buckets`` and ``target_bs``
+    shrink the phase for a rehearsal on the CPU (``dev`` the CPU). Returns
+    the path's launch counts and the record."""
+    from xva_trainer_tpu_torch.data.dataset import (DECODE_CHUNK, Bucket, BucketBatcher,
+                                                    FeatureCache)
+    from xva_trainer_tpu_torch.data.text.processor import TextProcessor
+    from xva_trainer_tpu_torch.interop.fastpitch_map import (fastpitch_extra_keys,
+                                                              load_fastpitch_checkpoint,
+                                                              rules_for_config)
+    from xva_trainer_tpu_torch.models.fastpitch import FastPitch, FastPitchConfig
+    from xva_trainer_tpu_torch.models.hifigan.models import Generator, HifiganConfig
+    from xva_trainer_tpu_torch.ops import _cuda
+    from xva_trainer_tpu_torch.train import fastpitch_trainer as pft
+    from xva_trainer_tpu_torch.train.checkpoints import export_fastpitch_v2
+    from xva_trainer_tpu_torch.train.optim import _STAGE_FROZEN_MODULES
+    from xva_trainer_tpu_torch.train.pipeline import V2InferenceModel, stage_batch_size
+
+    fp_cfg = fp_cfg or FastPitchConfig()
+    gen_cfg = gen_cfg or HifiganConfig()
+    on_card = dev.type == "cuda"
+    kernel_launch = 1 if on_card else 0  # a CPU rehearsal runs the plain versions
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # ---- set-up ----
+    t0 = time.perf_counter()
+    ds = os.path.join(work, "v2_voice")
+    specs = write_v2_dataset(ds, np.random.default_rng(40), reuse_wavs, per_bucket, buckets)
+    # the shipped dictionary in cmudict-0.7b's layout, two spaces after the
+    # word: the v2 reader (CMUDict, in JAX as here) splits on them, so the
+    # shipped file's one-space lines, decompressed as they are, load no entry
+    with gzip.open(os.path.join(REPO, "xva_trainer_tpu_torch", "assets", "dicts",
+                                "cmudict.txt.gz"), "rt", encoding="latin-1") as f, \
+            open(os.path.join(ds, "cmudict.txt"), "w", encoding="latin-1") as g:
+        for line in f:
+            word, _, phones = line.strip().partition(" ")
+            if phones:
+                g.write(f"{word.upper()}  {phones}\n")
+    torch.manual_seed(40)
+    base = FastPitch(fp_cfg)
+    with torch.no_grad():  # about 4 frames a token, so that inference speaks
+        base.duration_predictor.fc.bias.fill_(1.6)
+    base_pt = os.path.join(work, "fastpitch_base.pt")
+    export_fastpitch_v2(base, base_pt, "base")
+    del base
+    setup_s = time.perf_counter() - t0
+    steps_vs_cpu = fastpitch_steps_vs_cpu(base_pt, fp_cfg, dev)
+
+    # ---- the path ----
+    _cuda.reset_launch_counts()
+    secs = {}
+    tp = TextProcessor()
+    cache = FeatureCache(ds, tp.encode, device=dev)
+    before = _cuda.LAUNCHES["fused_stft"]
+    _, build_prof = profiled(cache.build, named=("fused_stft_kernel",)) if on_card else (
+        cache.build(), {"wall_ms": 0.0})
+    build_launches = _cuda.LAUNCHES["fused_stft"] - before
+    secs["cache_build"] = build_prof["wall_ms"] / 1e3
+    with open(os.path.join(cache.cache_dir, ".mel_variant"), encoding="utf8") as f:
+        variant = f.read()
+    cached = [it for it in cache.items if cache.load_item(it) is not None]
+    healed = os.path.exists(os.path.join(cache.cache_dir, "corrupt_wavs.txt"))
+    # each DECODE_CHUNK of items featurized in groups of <= 8 clips
+    groups = sum(-(-min(DECODE_CHUNK, len(cache.items) - c) // 8)
+                 for c in range(0, len(cache.items), DECODE_CHUNK))
+    check(len(cache.items) == len(cached) == len(specs) and not healed
+          and variant == "pallas" and build_launches == groups * kernel_launch,
+          f"fastpitch: {len(cached)} of {len(specs)} items cached, healed {healed}, variant "
+          f"{variant}, {build_launches} fused_stft launches for {groups} groups")
+    # the build's featurize groups: each chunk's clips by length, 8 a group,
+    # each in a (clips, slot + n_fft) buffer, slots a multiple of 32 768
+    group_shapes = []
+    for c in range(0, len(cache.items), DECODE_CHUNK):
+        lens = sorted(f * HOP for _, f, _ in specs[c: c + DECODE_CHUNK])
+        group_shapes += [(len(g), -(-max(g) // 32768) * 32768 + 1024)
+                         for g in (lens[i: i + 8] for i in range(0, len(lens), 8))]
+    max_len = cache.max_file_len_sec()
+    arpabet = TextProcessor(p_arpabet=0.3, cmudict_path=os.path.join(ds, "cmudict.txt"))
+    check(len(arpabet.cmudict.entries) > 100_000, "fastpitch: the CMUdict did not load")
+    made = {}
+
+    def batcher_for(stage: int):
+        # pipeline.py's factory: device_prior steps, so no host prior
+        b = BucketBatcher(cache, batch_size=stage_batch_size(32, stage, max_len),
+                          buckets=[Bucket(*bk) for bk in buckets], with_prior=False,
+                          device_prior=True)
+        b.arpabet_encoder = arpabet
+        b.use_durs = cache.has_durations()
+        made[stage] = b
+        return b
+
+    out_dir = os.path.join(work, "fp_out")
+    cfg = pft.FastPitchTrainConfig(output_dir=out_dir, batch_size=32, target_bs=target_bs,
+                                   use_amp=True)
+    t0 = time.perf_counter()
+    trainer = pft.FastPitchTrainer(cache, cfg, fp_cfg, device=dev)
+    batcher = batcher_for(1)
+    check(batcher.skipped == 0, f"fastpitch: {batcher.skipped} items fit no bucket")
+    trainer.setup(batcher, pretrained_ckpt=base_pt)
+    sync()
+    secs["trainer_and_warm_start"] = time.perf_counter() - t0
+
+    # every micro-step timed (synchronised), its launches, losses and frames;
+    # each stage's first update watched for the freezes
+    micro, align_batches, first_update = [], [], {}
+
+    def watch(tr):
+        real_get = tr._get_stage_step
+
+        def get(stage, use_gt):
+            step = real_get(stage, use_gt)
+
+            def counted(batch, kl_weight, generator):
+                opt = tr.opt
+                completes = opt.mini_step == opt.grad_accum - 1
+                first = completes and opt.count == 0 and stage not in first_update
+                if first:
+                    before = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+                counts = dict(_cuda.LAUNCHES)
+                sync()
+                t = time.perf_counter()
+                meta = step(batch, kl_weight, generator)
+                sync()
+                ms = (time.perf_counter() - t) * 1e3
+                rec = {"stage": stage, "use_gt": use_gt,
+                       "bucket": [int(batch["tokens"].shape[1]),
+                                  int(batch["mel"].shape[1]) if "mel" in batch else None],
+                       "batch": int(batch["tokens"].shape[0]), "ms": ms,
+                       "launches": {k: _cuda.LAUNCHES[k] - counts[k] for k in counts},
+                       "mel_frames": int(batch["durs"].sum()) if "durs" in batch
+                       else int(batch["mel_lens"].sum()),
+                       "loss": float(meta["loss"]), "skipped_nan": float(meta["skipped_nan"]),
+                       "update": completes}
+                micro.append(rec)
+                if first:
+                    after = tr.model.state_dict()
+                    frozen = _STAGE_FROZEN_MODULES[stage]
+                    moved_frozen = [k for k in after if k.split(".")[0] in frozen
+                                    and not torch.equal(after[k].view(torch.int32),
+                                                        before[k].view(torch.int32))]
+                    still = [k for k in after if k.split(".")[0] not in frozen
+                             and torch.equal(after[k], before[k])]
+                    zero_still = [k for k in still if float(before[k].abs().max()) == 0]
+                    enc = [k for k in after if ".dec_attn." in k or ".pos_ff." in k]
+                    first_update[stage] = {
+                        "frozen_tensors": sum(k.split(".")[0] in frozen for k in after),
+                        "frozen_moved": moved_frozen,
+                        "trained_tensors": sum(k.split(".")[0] not in frozen for k in after),
+                        "trained_unmoved": still, "trained_unmoved_all_zero": zero_still,
+                        "encoder_layers_moved": sum(
+                            not torch.equal(after[k], before[k]) for k in enc
+                            if k.startswith("encoder.")),
+                        "lr": opt.learning_rate(0)}
+                return meta
+
+            return counted
+
+        tr._get_stage_step = get
+        tr._stage_memo.clear()
+        # the current stage's step through the wrapper (not _stage_objects,
+        # which would reset a resumed early-stop state)
+        tr._step_fn = get(tr.stage, tr.stage >= 2 and tr.cache.has_durations())
+        real_align = pft.make_align_step(tr.model, tr.cfg.device_prior)
+
+        def align(batch):
+            n = _cuda.LAUNCHES["mas"]
+            sync()
+            t = time.perf_counter()
+            d = real_align(batch)
+            sync()
+            align_batches.append({"ms": (time.perf_counter() - t) * 1e3,
+                                  "mas": _cuda.LAUNCHES["mas"] - n,
+                                  "batch": int(batch["tokens"].shape[0])})
+            return d
+
+        tr._align_fn = align
+        return real_get
+
+    watch(trainer)
+    stages, saves = {}, []
+    real_save = trainer.ckpt.save
+
+    def save(*a, **kw):
+        p = real_save(*a, **kw)
+        saves.append(dict(trainer.ckpt.last_save))
+        return p
+
+    trainer.ckpt.save = save
+    t_train = time.perf_counter()
+    for stage in (1, 2, 3, 4):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        n0, epochs = len(micro), []
+        for epoch in range(2):
+            check(trainer.stage == stage, f"fastpitch: stage {trainer.stage}, expected {stage}")
+            if epoch == 1:
+                trainer.early.finished = True  # the cut: this stage ends after this epoch
+            t1 = time.perf_counter()
+            res = trainer.train(made[stage], max_epochs=1, batcher_factory=batcher_for)
+            epochs.append({"seconds": time.perf_counter() - t1, "meter_frames_s": res["frames_s"]})
+        sync()
+        stages[stage] = {"seconds": time.perf_counter() - t0, "epochs": epochs,
+                         "micro_steps": len(micro) - n0,
+                         "batch": made[stage].batch_size,
+                         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9
+                         if on_card else None}
+        if stage == 1:
+            stages[1]["extract_durations_seconds"] = sum(a["ms"] for a in align_batches) / 1e3
+    secs["train_stages_1_4"] = time.perf_counter() - t_train
+    check(res["stage"] == 4 and trainer.stage == 4, f"fastpitch: ended at {res}")
+
+    # ---- resume, then one more epoch of stage 4 ----
+    t0 = time.perf_counter()
+    t2 = pft.FastPitchTrainer(cache, cfg, fp_cfg, device=dev)
+    t2.setup(made[4])
+    sync()
+    resume_s = time.perf_counter() - t0
+    s1, s2 = trainer.opt.state_dict(), t2.opt.state_dict()
+    same = (all(torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(),
+                                                   t2.model.state_dict().values()))
+            and all(torch.equal(a, b) for n in ("mu", "nu", "acc") for a, b in zip(s1[n], s2[n]))
+            and (s1["count"], s1["mini_step"]) == (s2["count"], s2["mini_step"])
+            and (t2.stage, t2.epoch, t2.total_iter) == (trainer.stage, trainer.epoch,
+                                                       trainer.total_iter)
+            and t2.early.to_dict() == trainer.early.to_dict())
+    check(same, "fastpitch: the resumed trainer differs from the one it resumed")
+    t2_get = watch(t2)
+    n0 = len(micro)
+    t0 = time.perf_counter()
+    t2.train(made[4], max_epochs=1)
+    sync()
+    resumed_epoch = {"seconds": time.perf_counter() - t0, "micro_steps": len(micro) - n0,
+                     "mini_step": t2.opt.mini_step, "count": t2.opt.count}
+
+    # ---- export, previews, v2 inference ----
+    t0 = time.perf_counter()
+    export = t2.export("voice")
+    export_s = time.perf_counter() - t0
+    sd = torch.load(export, map_location="cpu", weights_only=True)
+    want = {r.torch_key for r in rules_for_config(fp_cfg)} | set(fastpitch_extra_keys())
+    with open(os.path.splitext(export)[0] + ".json") as f:
+        meta_json = json.load(f)
+    exported = FastPitch(fp_cfg)
+    load_fastpitch_checkpoint(export, exported)
+    check(set(sd) == want and all(v.dtype == torch.float16 for v in sd.values())
+          and meta_json["modelType"] == "FastPitch1.1",
+          f"fastpitch: the export's keys {sorted(set(sd) ^ want)[:8]}, dtypes "
+          f"{sorted({str(v.dtype) for v in sd.values()})}, type {meta_json['modelType']}")
+    t0 = time.perf_counter()
+    samples = t2.output_samples(FP_TEXTS, os.path.join(out_dir, "viz"))
+    sync()
+    samples_s = time.perf_counter() - t0
+    preview = []
+    for text, p in zip(FP_TEXTS, samples):
+        ids = tp.encode(text)
+        tokens = torch.from_numpy(np.pad(ids, (0, 128 - len(ids))).astype(np.int64))[None]
+        with torch.no_grad():
+            n = int(t2.model.eval().infer(tokens.to(dev), mel_max_len=512)["dec_lens"][0])
+        t2.model.train()
+        sr, pcm = wavfile.read(p)
+        preview.append({"text": text, "frames": n, "samples": len(pcm)})
+        check(sr == SR and len(pcm) == (n - 1) * HOP and n > 1 and np.isfinite(pcm).all(),
+              f"fastpitch: Griffin-Lim preview {preview[-1]}")
+    torch.manual_seed(42)
+    gen = Generator(gen_cfg).to(dev)
+    t0 = time.perf_counter()
+    fp_card = FastPitch(fp_cfg)
+    load_fastpitch_checkpoint(export, fp_card)
+    v2 = V2InferenceModel(fp_card.to(dev), gen)
+    sync()
+    v2_load_s = time.perf_counter() - t0
+    requests = []
+    for i, text in enumerate(V2_REQUESTS):
+        path = os.path.join(out_dir, f"v2_{i}.wav")
+        t0 = time.perf_counter()
+        v2.export_wav(text, path)
+        sync()
+        sec = time.perf_counter() - t0
+        ids = np.pad(v2.tp.encode(text), (0, 256 - len(v2.tp.encode(text))))
+        wav, lens = v2.infer(torch.from_numpy(ids.astype(np.int64))[None].to(dev))
+        sr, pcm = wavfile.read(path)
+        requests.append({"text": text, "seconds": sec, "dec_lens": int(lens[0]),
+                         "samples": len(pcm), "audio_seconds": len(pcm) / SR})
+        check(sr == SR and len(pcm) == HOP * int(lens[0]) > 0 and bool(torch.isfinite(wav).all()),
+              f"fastpitch: v2 request {requests[-1]}")
+    launches = dict(_cuda.LAUNCHES)  # the end of the fastpitch path
+
+    # ---- checks that read the card's results again ----
+    fp_cpu = FastPitch(fp_cfg)
+    load_fastpitch_checkpoint(export, fp_cpu)
+    fp_cpu.eval()
+    mel_cmp = []
+    for text in V2_REQUESTS:
+        ids = np.pad(tp.encode(text), (0, 256 - len(tp.encode(text)))).astype(np.int64)
+        with torch.no_grad():
+            a = v2.model.infer(torch.from_numpy(ids)[None].to(dev), mel_max_len=1024)
+            b = fp_cpu.infer(torch.from_numpy(ids)[None], mel_max_len=1024)
+        n = int(b["dec_lens"][0])
+        mel_cmp.append({"dec_lens_equal": int(a["dec_lens"][0]) == n, "frames": n,
+                        "mean_abs_err": float((a["mel_out"].cpu()[..., :n]
+                                               - b["mel_out"][..., :n]).abs().mean())})
+    check(all(m["dec_lens_equal"] and m["mean_abs_err"] < TOL for m in mel_cmp),
+          f"fastpitch: v2 mel card vs CPU {mel_cmp}")
+    stage1 = [m for m in micro if m["stage"] == 1]
+    later = [m for m in micro if m["stage"] > 1]
+    check(all(m["launches"]["mas"] == kernel_launch for m in stage1) and len(stage1) > 0
+          and all(m["launches"]["mas"] == 0 for m in later) and len(later) > 0
+          and all(a["mas"] == kernel_launch for a in align_batches) and len(align_batches) > 0,
+          f"fastpitch: MAS launches by micro-step {[(m['stage'], m['launches']['mas']) for m in micro]}"
+          f", by extraction batch {[a['mas'] for a in align_batches]}")
+    durs_ok = []
+    for it in cache.items:
+        d = cache.load_durations(it.item_id)
+        # the length is the ARPAbet-mixed encoding's of the extraction pass,
+        # which the later epochs' draws need not repeat (as in JAX)
+        durs_ok.append(d is not None and int(d.sum()) == cache.load_item(it)["mel"].shape[1])
+    check(all(durs_ok), f"fastpitch: durations missing or off for {durs_ok.count(False)} items")
+    check(all(np.isfinite(m["loss"]) and m["skipped_nan"] == 0 for m in micro),
+          f"fastpitch: a loss not finite or a micro-step skipped: "
+          f"{[(m['stage'], m['loss'], m['skipped_nan']) for m in micro]}")
+    check(sorted(first_update) == [1, 2, 3, 4]
+          and all(not u["frozen_moved"] and u["trained_unmoved"] == u["trained_unmoved_all_zero"]
+                  for u in first_update.values())
+          and first_update[1]["encoder_layers_moved"] > 0,
+          f"fastpitch: the freezes over each stage's first update: {first_update}")
+    # 8 items: each bucket's first, the last, and two more
+    idx = {b * per_bucket for b in range(len(buckets))} | {len(specs) - 1, 1, per_bucket + 1}
+    picks = [specs[i] for i in sorted(idx)]
+    items_vs_cpu = fastpitch_cache_vs_cpu(cache, picks)
+
+    # ---- one stage-3 pass of 10 micro-steps (an update) under the profiler,
+    # the trainer's own loop without the timing wrapper ----
+    t2._get_stage_step = t2_get
+    t2._stage_memo.clear()
+    t2.stage = 3
+    t2._stage_objects()
+    t2.reset_opt_state()
+    gen_t = torch.Generator(device=dev).manual_seed(7)
+    def pass3():
+        return [t2.run_epoch(made[3], gen_t) for _ in range(2)]
+
+    _, prof3 = profiled(pass3) if on_card else (pass3(), {})
+    check(t2.opt.count >= 1, f"fastpitch: the profiled stage-3 pass made {t2.opt.count} updates")
+
+    by_stage, update_s = {}, {}
+    for m in micro:
+        key = f"stage{m['stage']}"
+        by_stage.setdefault(key, {}).setdefault(str(m["bucket"]), []).append(m["ms"])
+    for s in (1, 2, 3, 4):
+        window, ms = [], []
+        for m in (m for m in micro if m["stage"] == s):
+            window.append(m)
+            if m["update"]:
+                ms.append({"seconds": sum(w["ms"] for w in window) / 1e3,
+                           "mel_frames": sum(w["mel_frames"] for w in window),
+                           "micro_steps": len(window)})
+                ms[-1]["mel_frames_per_s"] = ms[-1]["mel_frames"] / ms[-1]["seconds"]
+                window = []
+        update_s[f"stage{s}"] = ms
+    record = {
+        "config": "FastPitchConfig() (full width), seeded base .pt; HifiganConfig() generator",
+        "params": sum(p.numel() for p in trainer.model.parameters()),
+        "items": len(specs), "gpu": smi, "setup_seconds": setup_s, "seconds": secs,
+        "steps_vs_cpu": steps_vs_cpu,
+        "cache_build": {"seconds": secs["cache_build"], "groups": groups,
+                        "group_shapes": group_shapes,
+                        "fused_stft_device_ms": build_prof.get("named_kernels", {}).get(
+                            "fused_stft_kernel", [None])[0],
+                        "fused_stft_launches": build_launches, "variant": variant,
+                        "host_share": build_prof.get("host_share"),
+                        "device_busy_ms": build_prof.get("device_busy_ms"),
+                        "stage_seconds": cache.build_seconds},
+        "max_file_len_sec": max_len,
+        "stage_batches": {s: stage_batch_size(32, s, max_len) for s in (1, 2, 3, 4)},
+        "grad_accum": cfg.grad_accum, "stages": stages, "micro_ms_by_stage_bucket": by_stage,
+        "updates_by_stage": update_s, "profiled_stage3_pass": prof3,
+        "micro_steps": micro, "extract_durations": {
+            "seconds": stages[1]["extract_durations_seconds"], "batches": align_batches},
+        "first_update": first_update, "checkpoints": saves,
+        "resume_seconds": resume_s, "resumed_epoch": resumed_epoch,
+        "export": {"seconds": export_s, "mbytes": os.path.getsize(export) / 1e6},
+        "output_samples_seconds": samples_s, "previews": preview,
+        "v2": {"load_seconds": v2_load_s, "requests": requests, "mel_vs_cpu": mel_cmp},
+        "launches": launches, "items_vs_cpu": items_vs_cpu, "tf32": False}
+    return launches, record, (trainer, t2, made)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1950,10 +2572,28 @@ def main() -> int:
         rec["bound_share_of_device_ms"] = rec["bound_ms"] / rec["device_ms"]
         rec["full_bytes_bound_share_of_device_ms"] = rec["full_bytes_bound_ms"] / rec["device_ms"]
         mas_buckets.append(rec)
+    # the kernel at each v2 bucket at FastPitch's stage-1 batch, bf16 values
+    # (JAX's AMP gives the aligner's soft attention in bf16; torch's autocast
+    # keeps it fp32) and an fp32 mask
+    mas_v2 = []
+    for i, (bB, btx, bty, prev) in enumerate(MAS_V2_BUCKETS):
+        value, mask = mas_bucket(bB, btx, bty, prev, dev, seed=40 + i)
+        value = value.bfloat16()
+        runs = {"ms": [], "device_ms": []}
+        call = functools.partial(mas.maximum_path, value, mask)
+        for _ in range(2):
+            runs["ms"].append(cuda_ms(call, flush=flush))
+            runs["device_ms"].append(device_ms(call, flush))
+        rec = {"bucket": [bB, btx, bty], "dtype": "bfloat16",
+               **{k: sum(v) / len(v) for k, v in runs.items()}, **mas_bound(value, mask),
+               "runs": runs}
+        rec["bound_share_of_device_ms"] = rec["bound_ms"] / rec["device_ms"]
+        mas_v2.append(rec)
     emit("mas", cases=mas_cases, mismatches=mas_mismatch, trainer_shape=[mB, mtx, mty],
          timing=mas_timing, runs=mas_t, **trainer_bound,
          bound_share_of_device_ms=trainer_bound["bound_ms"] / mas_timing["device_ms"],
-         buckets=mas_buckets, library="none: no PyTorch call computes MAS", gpu=smi)
+         buckets=mas_buckets, v2_buckets=mas_v2, library="none: no PyTorch call computes MAS",
+         gpu=smi)
 
     # ---- the main path: 4. featurize → 5. synthesize → 6. voice_convert ----
     _cuda.reset_launch_counts()
@@ -2073,6 +2713,15 @@ def main() -> int:
         data_launches, data, data_ctx = data_phase(cfg_m, dev, smi, data_work)
         loop_launches, loop = train_loop_phase(cfg_m, dev, smi, data_ctx, ckpt, data_work)
         ml_launches, _ = multilingual_phase(cfg_m, dev, smi, data_ctx, ckpt, data_work)
+        fp_launches, fp_record, _ = fastpitch_phase(
+            dev, smi, data_work, os.path.join(data_ctx["dataset"], "wavs"))
+        # the least time for the v2 build's launches (mel only): each group's
+        # bound, summed
+        fp_build = fp_record["cache_build"]
+        fp_build["fused_stft_bound_ms"] = sum(
+            bound(gB, gT, 1 + (gT - n) // cfg.hop_length, linear=False)[2]
+            for gB, gT in fp_build["group_shapes"])
+        emit("fastpitch", **fp_record)
     finally:
         shutil.rmtree(data_work, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -2109,7 +2758,7 @@ def main() -> int:
          sums={k: v for k, v in build.items() if k.startswith("fused_stft_32_")}, gpu=smi)
     train_launches, train = train_phases(cfg_m, dev)
     by_path = {"serve": launches, "data": data_launches, "loop": loop_launches,
-               "multilingual": ml_launches, "train": train_launches}
+               "multilingual": ml_launches, "fastpitch": fp_launches, "train": train_launches}
 
     kernels = [{
         "name": "fused_stft", "route": "cuda",
@@ -2121,6 +2770,9 @@ def main() -> int:
         "plain_device_ms": tb["plain_device_ms"], "library_device_ms": tb["library_device_ms"],
         "launches_by_path": {p: c["fused_stft"] for p, c in by_path.items()},
         "launches_per_train_step": train_launches["fused_stft"] / train["timed_steps"],
+        "v2_cache_build": {k: fp_build[k] for k in ("fused_stft_launches", "groups",
+                                                    "fused_stft_device_ms",
+                                                    "fused_stft_bound_ms", "seconds")},
         "cache_build": {k: build[k] for k in ("fused_stft_launches", "featurize_groups",
                                               "fused_stft_device_ms", "fused_stft_bound_ms",
                                               "seconds", "fused_stft_32_ms",
@@ -2147,6 +2799,9 @@ def main() -> int:
         "buckets": [{k: b[k] for k in ("bucket", "ms", "device_ms", "bound_ms", "bound_by",
                                        "full_bytes_bound_ms", "bound_share_of_device_ms")}
                     for b in mas_buckets],
+        "v2_buckets": [{k: b[k] for k in ("bucket", "dtype", "ms", "device_ms", "bound_ms",
+                                          "bound_by", "bound_share_of_device_ms")}
+                       for b in mas_v2],
         "launches_by_path": {p: c["mas"] for p, c in by_path.items()},
         "launches_per_train_step": train_launches["mas"] / train["timed_steps"],
     }]
@@ -2156,6 +2811,7 @@ def main() -> int:
                                          ("data", ["fused_stft", "mas"]),
                                          ("loop", ["fused_stft", "mas"]),
                                          ("multilingual", ["fused_stft", "mas"]),
+                                         ("fastpitch", ["fused_stft", "mas"]),
                                          ("train", ["fused_stft", "mas"]))
                for k in ks if by_path[p][k] < 1]
     check(not missing, f"a main path launched no {missing}")

@@ -198,13 +198,14 @@ MAS_CASES = {  # name: (B, t_x, t_y)
     "long_text": (2, 1100, 1500), "start_minus_inf": (8, 192, 768),
     "minus_inf_column": (8, 192, 768), "nan_under_mask": (8, 192, 768),
     "fractional_mask": (8, 192, 768), "non_rectangular_mask": (8, 192, 768),
-    "odd_frames": (4, 50, 333), "fastpitch": (16, 256, 896), "long_frames": (2, 40, 7000)}
+    "odd_frames": (4, 50, 333), "fastpitch": (16, 256, 896), "long_frames": (2, 40, 7000),
+    "fastpitch_stage1": (46, 256, 896)}
 MAS_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
              (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
 # cases in which every active frame holds one nonzero path entry
 MAS_ONE_PER_FRAME = ("trainer", "one_token", "square", "more_tokens", "extreme", "bf16",
                      "long_text", "fractional_mask", "odd_frames", "fastpitch",
-                     "long_frames")
+                     "long_frames", "fastpitch_stage1")
 
 
 def mas_case(name, device, value_dtype=None, mask_dtype=torch.float32, seed=0):
@@ -214,8 +215,9 @@ def mas_case(name, device, value_dtype=None, mask_dtype=torch.float32, seed=0):
     DP warps, 8-frame tiles, the direction bits in scratch); -inf at (0, 0)
     (the backtrack walks below x = 0), a -inf column at frame 0, NaN under
     the mask, a fractional mask, zeros inside the lengths; an odd t_y (bf16
-    rows staged without cp.async); FastPitch's 256 x 896; 7 000 frames of 40
-    tokens (the bits in scratch, one warp). The value is bf16
+    rows staged without cp.async); FastPitch's 256 x 896, and at its stage-1
+    batch of 46 (every type pair, bf16 values with an fp32 mask among them);
+    7 000 frames of 40 tokens (the bits in scratch, one warp). The value is bf16
     for "bf16" unless ``value_dtype`` says otherwise."""
     rng = np.random.default_rng(seed)
     B, tx, ty = MAS_CASES[name]
@@ -277,6 +279,47 @@ def test_mas_kernel_empty_batch_and_bad_input(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         mas.maximum_path(torch.zeros((1, 4096, 4096), device=cuda),
                          torch.ones((1, 4096, 4096), device=cuda))
+
+
+# ---------------- the v2 FastPitch steps ----------------
+
+
+def test_fastpitch_steps_on_card(cuda):
+    """FastPitch's stage steps at a small width on the card under AMP: the
+    stage-1 step (the aligner) launches MAS once, a stage-3 step on
+    extracted durations never; the losses finite."""
+    from xva_trainer_tpu_torch.models.fastpitch import FastPitch, FastPitchConfig
+    from xva_trainer_tpu_torch.train import fastpitch_trainer as pft
+    from xva_trainer_tpu_torch.train.optim import LambOptimizer
+
+    torch.manual_seed(0)
+    model = FastPitch(FastPitchConfig(symbols_embedding_dim=64, in_fft_n_layers=2,
+                                      out_fft_n_layers=2, in_fft_filter_size=128,
+                                      out_fft_filter_size=128)).to(cuda).train()
+    rng = np.random.default_rng(1)
+    B, tx, ty = 4, 64, 256
+    in_lens = torch.tensor([64, 40, 20, 1], device=cuda)
+    mel_lens = torch.tensor([256, 200, 90, 1], device=cuda)
+    durs = torch.zeros((B, tx), device=cuda)
+    for b in range(B):
+        durs[b, :in_lens[b]] = mel_lens[b] // in_lens[b]
+        durs[b, 0] += mel_lens[b] - durs[b].sum()
+    batch = {"tokens": torch.from_numpy(rng.integers(1, 148, (B, tx))).to(cuda)
+             * (torch.arange(tx, device=cuda)[None] < in_lens[:, None]),
+             "in_lens": in_lens, "mel_lens": mel_lens, "durs": durs,
+             "mel": torch.randn((B, ty, 80), device=cuda).half() - 4,
+             "pitch": torch.randn((B, 1, ty), device=cuda).half(),
+             "energy": torch.rand((B, ty), device=cuda).half()}
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for stage, use_gt, launches in ((1, False, 1), (3, True, 0)):
+        opt = LambOptimizer(model.parameters(), grad_accum=2)
+        step = pft.make_stage_step(model, stage, opt, use_gt_durs=use_gt, use_amp=True,
+                                   device_prior=True)
+        before = _cuda.LAUNCHES["mas"]
+        meta = step(batch, 0.1, gen)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["mas"] - before == launches, stage
+        assert all(bool(torch.isfinite(v).all()) for v in meta.values()), meta
 
 
 # ---------------- the v3 trainer loop ----------------

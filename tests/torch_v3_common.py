@@ -287,3 +287,46 @@ def run_both_steps(case, *, fused=True, jax_tx=None, port_opt=Sgd, freeze_post_d
     new = port_sds(pm, pd)
     return ({k: np.asarray(v) for k, v in j_meta.items()}, p_meta, old, new, j_old, j_new,
             new_state)
+
+
+# ---------------- the v2 (FastPitch) tests' set-up ----------------
+
+def fastpitch_configs():
+    """(JAX, port) FastPitchConfig at the small width of the v2 parity tests:
+    2 + 2 layers, 64 wide, filters 128, no dropout."""
+    from xva_trainer_tpu.models.fastpitch import FastPitchConfig as JaxFastPitchConfig
+    from xva_trainer_tpu_torch.models.fastpitch import FastPitchConfig
+
+    kw = dict(symbols_embedding_dim=64, in_fft_n_layers=2, out_fft_n_layers=2,
+              in_fft_d_head=32, out_fft_d_head=32, in_fft_filter_size=128,
+              out_fft_filter_size=128, predictor_filter_size=128, p_fft_dropout=0.0,
+              p_fft_dropatt=0.0, p_predictor_dropout=0.0)
+    return JaxFastPitchConfig(**kw), FastPitchConfig(**kw)
+
+
+def seeded_fastpitch(jcfg, seed=0, t_text=12, t_mel=40):
+    """Seeded JAX FastPitch parameters (numpy, under "params"), shapes traced
+    with ``jax.eval_shape`` (no init program is compiled). The duration
+    predictor's output bias is 1.6, so that inference predicts about 4
+    frames a token (small seeded weights alone predict none)."""
+    from xva_trainer_tpu.models.fastpitch import FastPitch as JaxFastPitch
+
+    z = jnp.zeros
+    shapes = jax.eval_shape(
+        JaxFastPitch(jcfg).init, jax.random.PRNGKey(0), z((1, t_text), jnp.int32),
+        jnp.ones((1,), jnp.int32), z((1, t_mel, 80)), jnp.ones((1,), jnp.int32),
+        z((1, 1, t_mel)), z((1, t_mel)), z((1, t_mel, t_text)))
+    params = _seeded(shapes, seed)
+    bias = params["params"]["duration_predictor"]["Dense_0"]["bias"]
+    params["params"]["duration_predictor"]["Dense_0"]["bias"] = np.full_like(bias, 1.6)
+    return params
+
+
+def port_fastpitch(jax_params, cfg):
+    """The port's FastPitch with ``jax_params`` carried in (strict), fp32, eval."""
+    from xva_trainer_tpu_torch.interop.convert import fastpitch_state_dict
+    from xva_trainer_tpu_torch.models.fastpitch import FastPitch
+
+    model = FastPitch(cfg)
+    model.load_state_dict(fastpitch_state_dict(jax_params, cfg), strict=True)
+    return model.eval()

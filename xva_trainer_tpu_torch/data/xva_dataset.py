@@ -35,8 +35,8 @@ from .. import resolve_device
 from ..ops.features import featurize_batch
 from ..ops.stft import DEFAULT_MEL, MelConfig
 from .audio_io import load_wav, resample
-from .dataset import (Bucket, Utterance, atomic_savez, drop_known_corrupt, heal_corrupt_item,
-                      read_metadata, sticky_mel_variant)
+from .dataset import (DECODE_CHUNK, Bucket, Utterance, atomic_savez, drop_known_corrupt,
+                      heal_corrupt_item, read_metadata, sticky_mel_variant)
 from .packed import PackedReader, pack_cache
 
 log = logging.getLogger("xva")
@@ -53,7 +53,6 @@ LANG_CODES = [
 ]  # 31 languages (reference python/xvapitch/text/__init__.py:5-37)
 
 CACHE_DIR = ".tpu_cache_v3"  # the JAX package's name, so both share a cache
-DECODE_CHUNK = 256           # items decoded at a time by the build's thread pool
 
 
 def lang_to_id(lang: str) -> int:

@@ -49,6 +49,27 @@ def train_state_dicts(g_params: Dict, d_params: Dict, cfg) -> Tuple[Dict, Dict]:
     return xvapitch_state_dict(g_params, cfg), vits_disc_state_dict(d_params)
 
 
+def fastpitch_state_dict(jax_params_as_numpy: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """JAX FastPitch parameters (numpy, with or without the top-level
+    ``"params"`` key) → the fp32 state dict that loads the port's
+    ``FastPitch(cfg)`` with ``strict=True``."""
+    from .fastpitch_map import rules_for_config
+
+    return _tensors(apply_carry(jax_params_as_numpy, rules_for_config(cfg)))
+
+
+def hifigan_v2_state_dict(jax_params_as_numpy: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """JAX standalone v2 ``Generator`` parameters → the fp32 state dict of the
+    port's ``Generator(cfg)``, weight norm carried as in
+    ``xvapitch_state_dict``."""
+    from .hifigan_map import v2_generator_rules
+
+    rules = v2_generator_rules(num_ups=len(cfg.upsample_rates),
+                               num_kernels=len(cfg.resblock_kernel_sizes),
+                               num_dilations=len(cfg.resblock_dilation_sizes[0]))
+    return _tensors(apply_carry(jax_params_as_numpy, rules))
+
+
 def _norm_except(w: torch.Tensor, dim: int) -> torch.Tensor:
     dims = [d for d in range(w.dim()) if d != dim]
     return torch.sqrt(torch.sum(w * w, dim=dims, keepdim=True))

@@ -88,3 +88,9 @@ def mel_filterbank(
         weights *= enorm[:, None]
 
     return weights.astype(dtype)
+
+
+def inverse_mel_filterbank(**kwargs) -> np.ndarray:
+    """Pseudo-inverse of the mel basis (for mel → linear, Griffin-Lim)."""
+    basis = mel_filterbank(**kwargs)
+    return np.linalg.pinv(basis.astype(np.float64)).astype(basis.dtype)

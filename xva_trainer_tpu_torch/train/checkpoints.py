@@ -1,4 +1,4 @@
-"""Rolling training checkpoints, and the xVASynth v3 export.
+"""Rolling training checkpoints, and the xVASynth v3 and v2 exports.
 
 Counterpart of ``xva_trainer_tpu/train/checkpoints.py`` (reference
 python/xvapitch/xva_train.py: checkpoint contents :952-963, a rolling window
@@ -27,7 +27,9 @@ torch's ``weight_norm(dim=0)`` stores it, ``weight_v`` the effective weight
 and ``weight_g`` its norm over dim 0 (the decoder's ``ups`` included, whose
 dim 0 is the input channel), computed in float64 from the pair as the port
 holds it (flax's: ``weight_v`` the kernel, ``weight_g`` the scale, over the
-output axis).
+output axis). The v2 export (``export_fastpitch_v2``) is FastPitch's fp16
+reference-layout state dict with its extra keys, and the same metadata JSON
+as the JAX package's.
 """
 from __future__ import annotations
 
@@ -202,5 +204,36 @@ def export_xvapitch_v3(
     }
     if other_embs is not None:
         meta["games"][0]["other_embs"] = other_embs
+    with open(os.path.splitext(out_path)[0] + ".json", "w") as f:
+        json.dump(meta, f, indent=4)
+
+
+def export_fastpitch_v2(model: nn.Module, out_path: str, voice_name: str,
+                        pitch_stats: Optional[Tuple[float, float]] = None) -> None:
+    """xVASynth v2 export (reference fastpitch1_1/xva_train.py:1030-1047):
+    ``interop/fastpitch_map.py::fastpitch_state_dict`` in fp16 written with
+    ``torch.save`` to ``out_path``, and the metadata JSON beside it, as the
+    JAX package writes them with its default game ("other") and author
+    ("")."""
+    from ..interop.fastpitch_map import fastpitch_state_dict
+
+    mean, std = pitch_stats if pitch_stats is not None else (0.0, 1.0)
+    torch.save(fastpitch_state_dict(model, pitch_mean=mean, pitch_std=std), out_path)
+    meta = {
+        "version": "2.0",
+        "modelVersion": "2.0",
+        "modelType": "FastPitch1.1",
+        "author": "",
+        "lang": "en",
+        "games": [
+            {
+                "gameId": "other",
+                "voiceId": voice_name,
+                "voiceName": voice_name,
+                "resemblyzer": [],
+                "gender": "male",
+            }
+        ],
+    }
     with open(os.path.splitext(out_path)[0] + ".json", "w") as f:
         json.dump(meta, f, indent=4)
