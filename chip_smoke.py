@@ -6,9 +6,11 @@ Builds the port's CUDA kernels from ``xva_trainer_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the main paths' shapes,
 then drives the v3 serving path, the v3 data path, the v3 trainer loop, the
 v3 fine-tune with priors in other languages, the v2 FastPitch fine-tune
-with its preview and v2 inference, and the v3 training step through the
-entry points a user calls, at the full width of the shipped "big" xVAPitch
-and of ``FastPitchConfig()`` (weights from a seed). Phases, one JSON line
+with its preview and v2 inference, the v2 HiFi-GAN stage and the v2
+pipeline to both exports, and the v3 training step through the entry
+points a user calls, at the full width of the shipped "big" xVAPitch, of
+``FastPitchConfig()`` and of ``HifiganConfig()`` with
+``HifiganDiscriminator()`` (weights from a seed). Phases, one JSON line
 each:
 
 1. ``device``: the card, as torch and ``nvidia-smi`` name it;
@@ -16,14 +18,17 @@ each:
 3. ``fused_stft``: the kernel against its plain version (Tacotron, HiFi-GAN
    and pre-padded framing, with and without the linear output, a clip under
    128 frames, an alternating signal whose energy sits in the Nyquist bin,
-   silence, and a bucket of 8 clips of 2-10 s), each side's error against a
+   silence, a bucket of 8 clips of 2-10 s, and the HiFi-GAN loss mel's full
+   band, ``LOSS_MEL``), each side's error against a
    float64 ``torch.fft.rfft`` reference, the kernel's time at the bucket and
    at the voice-conversion clip beside the plain version's and the
    ``torch.stft`` chain's (a library yardstick), each as the call's time
    seen from the host (``ms``, ``cuda_ms``) and as device time
    (``device_ms``), and its bound; the same three at the train step's own
    shapes (``materialize_spec``'s 64 x 196 608 samples with the linear
-   output, the mel loss's 64 x 8 192, mel only);
+   output, the mel loss's 64 x 8 192, mel only) and at the HiFi-GAN step's
+   (16 x 8 192, mel only, under ``MelConfig()`` and ``LOSS_MEL``), the
+   kernel held to its plain version at each of these four shapes too;
 4. ``featurize``: ``featurize_batch(mode="linear")`` on that bucket, twice
    (the first call in the process, then warm), held against the CPU, with
    the host/device split of each call's wall time;
@@ -107,13 +112,23 @@ each:
    bit-identical resume and one more epoch → the export → Griffin-Lim
    previews → three ``V2InferenceModel`` requests with a seeded v2 HiFi-GAN
    generator; before it, an fp32 stage-1 and stage-3 step on the card
-   against the CPU (``fastpitch_phase``).
+   against the CPU (``fastpitch_phase``);
+18. ``hifigan`` (after phase 17, on its dataset): the GAN step at full
+   width in both orders on the card against a float64 step on the card
+   and the CPU (fp32) and under AMP,
+   a warm start from seeded reference-layout ``g_``/``do_`` files, then
+   ``train_v2_pipeline`` from a copy of the dataset (the v2 cache build,
+   two FastPitch epochs, the export, two HiFi-GAN epochs at B = 16, the
+   ``.hg.pt`` export), a bit-identical resume and one more epoch, three v2
+   requests on the two exports, and a profiled pass (``hifigan_phase``).
+   ``cache_build_shapes`` (phase 15) also times the v2 build's slots.
 
 Phases 4-6 are the serving path, phase 13's path the data path, phase 14's
 seeding pass and four updates the loop path, phase 16's path from
 ``preprocess_audio`` to the French request the multilingual path, phase
 17's path from the cache build to the last v2 request the fastpitch path,
-and phase 12's timed steps the training path: the launch counts are set to
+phase 18's from ``train_v2_pipeline`` to its last v2 request the hifigan
+path, and phase 12's timed steps the training path: the launch counts are set to
 0 just before each and read just after it. Every comparison runs with TF32 off.
 Then come the line of kernels, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
@@ -412,6 +427,13 @@ def update_mismatch(old, new_refs, new, scale: float = 1.0):
     parameter's largest value (the finest difference new - old resolves in
     fp32), all times ``scale``. Returns the five worst as [ratio, key, err,
     max |reference update|], and every parameter whose ratio exceeds 1."""
+    rows = update_rows(old, new_refs, new, scale)
+    return rows[:5], [row for row in rows if row[0] > 1.0]
+
+
+def update_rows(old, new_refs, new, scale: float = 1.0):
+    """``update_mismatch``'s [ratio, key, err, max |reference update|] for
+    every parameter, the worst first."""
     refs = [{k: r[k] - old[k] for k in old} for r in new_refs]
     floor = 1e-6 * max(float(r.abs().max()) for r in refs[0].values())
     ulp2 = 2 * float(np.finfo(np.float32).eps)
@@ -422,7 +444,7 @@ def update_mismatch(old, new_refs, new, scale: float = 1.0):
         rows.append([err / tol if tol else (0.0 if err == 0 else float("inf")), k, err,
                      float(r.abs().max())])
     rows.sort(reverse=True)
-    return rows[:5], [row for row in rows if row[0] > 1.0]
+    return rows
 
 
 MAS_CASES = {  # name: (B, t_x, t_y)
@@ -2361,6 +2383,545 @@ def fastpitch_phase(dev, smi: str, work: str, reuse_wavs: str | None, fp_cfg=Non
     return launches, record, (trainer, t2, made)
 
 
+def reference_effective_weights(sd: dict) -> dict:
+    """The weights of a reference-layout state dict as the reference's
+    forward uses them, float64: each (weight_g, weight_v) pair combined over
+    dim 0, the rest as they are."""
+    out = {}
+    for k, v in sd.items():
+        if k.endswith("weight_g"):
+            continue
+        if k.endswith("weight_v") and k[:-1] + "g" in sd:
+            v, g = v.double(), sd[k[:-1] + "g"].double()
+            dims = list(range(1, v.dim()))
+            out[k[:-len("_v")]] = v / torch.sqrt((v * v).sum(dim=dims, keepdim=True)) * g
+        else:
+            out[k] = v.double()
+    return out
+
+
+# The GAN step's fp32 updates are held to a float64 step on the card
+# (gan_step_f64), each tensor by update_mismatch's bar. The noise scale is
+# measured in the same run: the CPU's two fp32 steps (oneDNN and native
+# convolutions) against the same float64 step. Every kernel is held at
+# GAN_WEIGHT_NOISE times the CPU's worst kernel ratio (at least 1). Biases
+# and weight-norm scales, in both models, are held at GAN_FP32_JUMPS bars:
+# their gradients are sums (over the batch and every frame, or over a
+# filter) that cancel, and the mel L1 (x45), the feature matching and every
+# leaky ReLU take a branch by the sign of a value that may sit at rounding
+# level, so a rounding-level change of any input flips some branches and a
+# few of these sums jump by whole bars. Which ones jump differs from one
+# fp32 implementation to the next, so no CPU distance, tensor by tensor,
+# predicts the card's: scripts/probe_gan_fp32_noise.py measures how far six
+# fp32 implementations land from the float64 step (PERF.md §6). Each
+# model's whole update is also held in the L2 norm.
+GAN_WEIGHT_NOISE = 2.0
+GAN_FP32_JUMPS = 8.0
+GAN_UPDATE_L2 = 1e-3
+
+
+def gan_jumps(key: str) -> bool:
+    """Whether a tensor's update may jump on fp32 rounding: a bias or a
+    weight-norm scale."""
+    return key.endswith(("bias", "weight_g"))
+
+
+def gan_step_f64(gen, disc, wav, d_first: bool = False) -> dict:
+    """A plain reference of one HiFi-GAN step (SGD, ``Sgd``) in the modules'
+    dtype, float64 here, with the mels by ``rfft_reference``: the default
+    order (G against the current D, then D on the detached fakes) or
+    ``d_first`` (D on fakes made without gradient, then G against the
+    updated D). Returns the five losses."""
+    from xva_trainer_tpu_torch.models.hifigan.models import (discriminator_loss,
+                                                             feature_matching_loss,
+                                                             generator_adv_loss)
+    from xva_trainer_tpu_torch.ops.stft import LOSS_MEL, MelConfig
+    from xva_trainer_tpu_torch.train.hifigan_trainer import MEL_WEIGHT
+
+    def mel(y, cfg):
+        return rfft_reference(y, cfg, False, 1e-9)[0]
+
+    with torch.no_grad():
+        mel_in, mel_real = mel(wav[:, 0], MelConfig()), mel(wav[:, 0], LOSS_MEL)
+    g_params, d_params = list(gen.parameters()), list(disc.parameters())
+
+    def d_step(y_hat):
+        outs_r, outs_g, _, _ = disc(wav, y_hat, update_sn_stats=True)
+        d_loss = discriminator_loss(outs_r, outs_g)
+        Sgd(d_params).step(torch.autograd.grad(d_loss, d_params))
+        return d_loss
+
+    if d_first:
+        with torch.no_grad():
+            y_hat = gen(mel_in)
+        d_loss = d_step(y_hat)
+    y = gen(mel_in)
+    mel_l1 = (mel(y[:, 0], LOSS_MEL) - mel_real).abs().mean()
+    _, outs_g, fmaps_r, fmaps_g = disc(wav, y)
+    adv, fm = generator_adv_loss(outs_g), feature_matching_loss(fmaps_r, fmaps_g)
+    g_loss = MEL_WEIGHT * mel_l1 + adv + fm
+    Sgd(g_params).step(torch.autograd.grad(g_loss, g_params))
+    if not d_first:
+        d_loss = d_step(y.detach())
+    return {k: float(v) for k, v in (("mel_l1", mel_l1), ("adv", adv), ("fm", fm),
+                                     ("g_loss", g_loss), ("d_loss", d_loss))}
+
+
+def gan_held(old_p: list, ref: list, new: list, noise: float) -> dict:
+    """Each model's tensors of ``new`` against ``ref`` (update_rows at scale
+    1): the worst ratio of the biases and weight-norm scales and of the
+    kernels, the tensors over their bar (``GAN_FP32_JUMPS``, ``noise``),
+    and each model's L2 distance (update_l2_rel)."""
+    rows = [row for o, r, n in zip(old_p, ref, new) for row in update_rows(o, [r], n)]
+    jumps = [row for row in rows if gan_jumps(row[1])]
+    kernels = [row for row in rows if not gan_jumps(row[1])]
+    return {"worst": {"biases_and_scales": max(jumps)[:3], "kernels": max(kernels)[:3]},
+            "l2_rel": [update_l2_rel(o, r, n) for o, r, n in zip(old_p, ref, new)],
+            "over": [row[:3] for row in jumps if row[0] > GAN_FP32_JUMPS]
+            + [row[:3] for row in kernels if row[0] > noise]}
+
+
+def update_l2_rel(old: dict, ref: dict, new: dict) -> float:
+    """||new's update - ref's update|| / ||ref's update||, over every tensor
+    of the state together."""
+    num = sum(float(((new[k] - old[k]) - (ref[k] - old[k])).double().pow(2).sum()) for k in old)
+    den = sum(float((ref[k] - old[k]).double().pow(2).sum()) for k in old)
+    return math.sqrt(num / den) if den else (0.0 if num == 0 else float("inf"))
+
+
+def seeded_hifigan(gen_cfg, disc_factory, seed: int):
+    """A v2 HiFi-GAN generator and discriminator from the modules' own
+    initialisation under ``torch.manual_seed(seed)`` (every weight-norm
+    scale 1, as the JAX package's flax modules start)."""
+    from xva_trainer_tpu_torch.models.hifigan import Generator
+
+    torch.manual_seed(seed)
+    return Generator(gen_cfg), disc_factory()
+
+
+def without_sn(state: dict) -> dict:
+    """A state dict without the spectral norm's vectors (compared apart)."""
+    return {k: v for k, v in state.items() if not k.endswith(("weight_u", "weight_v"))}
+
+
+def hifigan_phase(dev, smi: str, work: str, ds: str, gen_cfg=None, fp_cfg=None,
+                  disc_factory=None, seg_batch: int = 2) -> tuple:
+    """Phase 18, ``hifigan``: the v2 HiFi-GAN stage and the v2 pipeline at
+    the full width of ``HifiganConfig()`` and ``HifiganDiscriminator()``, on
+    the ``fastpitch`` phase's dataset ``ds`` (320 seeded clips, the CMUdict
+    in cmudict-0.7b's layout):
+
+    1. one GAN step (SGD, so that the updates compare the gradients; AMP
+       and TF32 off) at B = 2 on 8 192-sample segments of the dataset, in
+       both orders, from the same seeded weights: in fp32 on the card, in
+       float64 on the card (``gan_step_f64``, the reference), and in fp32 on
+       the CPU with oneDNN and with its native convolutions (the noise
+       scale). The card's five losses within 1e-3 relative of the CPU's and
+       of the float64 step's; each updated tensor within ``update_mismatch``'s
+       bar of the float64 update, biases and weight-norm scales at
+       ``GAN_FP32_JUMPS`` bars and every kernel at ``GAN_WEIGHT_NOISE``
+       times the CPU steps' worst kernel ratio; each model's whole update
+       within ``GAN_UPDATE_L2`` (L2); MSD disc 0's ``u`` within 1e-4 of the
+       CPU's; the two orders' D updates on the card equal by the same bars;
+    2. the same default-order step under AMP: its G and D losses within 5% of
+       fp32's;
+    3. a warm start: seeded reference-layout ``g_`` and ``do_`` files, then
+       ``HifiganTrainer.setup(resume=False, pretrained_g, pretrained_do)``:
+       the effective weights within 1e-5 relative of the files', MSD disc 0's
+       ``weight_orig`` and ``weight_u`` equal, ``epoch`` and ``total_iter``
+       from the file;
+    4. the path (launch counts set to 0 just before it): ``train_v2_pipeline``
+       on a copy of ``ds`` without its cache (batch 32, 2 FastPitch epochs,
+       2 HiFi-GAN epochs): the v2 cache build, FastPitch stage 1 and its
+       export, the HiFi-GAN trainer built at the hand-off (B = 16, 60 steps
+       an epoch, a checkpoint each epoch), the ``.hg.pt`` export; each
+       HiFi-GAN step timed (synchronised) with its launches;
+    5. a second trainer resumed from the directory, bit-identical, then one
+       more epoch;
+    6. three ``V2InferenceModel`` requests on the two exports (the end of
+       the path);
+    7. outside the path: 5 timed steps in the ``d_first`` order, 10 default
+       steps under the profiler, and the generated-side mel's forward and
+       backward (``ops/stft.py``) timed beside the fused kernel's two
+       launches at the step's shape.
+
+    ``gen_cfg``, ``fp_cfg``, ``disc_factory`` and ``seg_batch`` shrink the
+    phase for a rehearsal on the CPU (``dev`` the CPU). Returns the path's
+    launch counts and the record."""
+    from xva_trainer_tpu_torch.interop.convert import ups_to_reference
+    from xva_trainer_tpu_torch.interop.fastpitch_map import load_fastpitch_checkpoint
+    from xva_trainer_tpu_torch.interop.hifigan_map import v2_generator_rules
+    from xva_trainer_tpu_torch.interop.pretrained import load_hifigan_generator
+    from xva_trainer_tpu_torch.models.fastpitch import FastPitch, FastPitchConfig
+    from xva_trainer_tpu_torch.models.hifigan import (Generator, HifiganConfig,
+                                                      HifiganDiscriminator)
+    from xva_trainer_tpu_torch.ops import _cuda
+    from xva_trainer_tpu_torch.ops.fused_stft import mel_spectrogram_fused
+    from xva_trainer_tpu_torch.ops.stft import LOSS_MEL, MelConfig, mel_spectrogram_hifigan
+    from xva_trainer_tpu_torch.train import hifigan_trainer as pht
+    from xva_trainer_tpu_torch.train.pipeline import (PipelineConfig, V2InferenceModel,
+                                                      train_v2_pipeline)
+
+    gen_cfg = gen_cfg or HifiganConfig()
+    fp_cfg = fp_cfg or FastPitchConfig()
+    full_disc = pht.HifiganDiscriminator
+    disc_factory = disc_factory or HifiganDiscriminator
+    on_card = dev.type == "cuda"
+    kernel_launch = 1 if on_card else 0  # a CPU rehearsal runs the plain versions
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # ---- 1. one fp32 step, card against CPU, both orders ----
+    gen0, disc0 = seeded_hifigan(gen_cfg, disc_factory, 60)
+    n_g = sum(p.numel() for p in gen0.parameters())
+    n_mpd = sum(p.numel() for p in disc0.mpd.parameters())
+    n_msd = sum(p.numel() for p in disc0.msd.parameters())
+    old = state_of(gen0, disc0)
+    sampler = pht.SegmentSampler(ds, seg_batch, seed=61, data_mult=1)
+    seg = torch.from_numpy(np.ascontiguousarray(next(sampler.epoch()).transpose(0, 2, 1)))
+
+    def fresh(dv):
+        g, d = Generator(gen_cfg), disc_factory()
+        g.load_state_dict(old[0])
+        d.load_state_dict(old[1])
+        return g.to(dv), d.to(dv)
+
+    metas, news, secs = {}, {}, {}
+    runs = [("gpu", dev, False), ("gpu_d_first", dev, True), ("gpu_f64", dev, False),
+            ("gpu_f64_d_first", dev, True), ("cpu", cpu, False), ("cpu_d_first", cpu, True),
+            ("cpu_native_conv", cpu, False), ("cpu_native_conv_d_first", cpu, True)]
+    for name, dv, d_first in runs:
+        g, d = (gen0, disc0) if name == "cpu" else fresh(dv)
+        torch.backends.mkldnn.enabled = "native" not in name
+        t0 = time.perf_counter()
+        if "f64" in name:
+            metas[name] = gan_step_f64(g.double(), d.double(), seg.to(dv, torch.float64),
+                                       d_first)
+        else:
+            step = pht.make_gan_step(g, d, Sgd(g.parameters()), Sgd(d.parameters()),
+                                     MelConfig(), use_amp=False, d_first=d_first)
+            metas[name] = {k: float(v) for k, v in step(seg.to(dv)).items()}
+            del step
+        sync()
+        secs[name] = time.perf_counter() - t0
+        news[name] = state_of(g, d)
+        del g, d
+    torch.backends.mkldnn.enabled = True
+    loss_rel = {o: {k: abs(metas[f"gpu{o}"][k] - metas[f"cpu{o}"][k])
+                    / max(abs(metas[f"cpu{o}"][k]), 1e-30) for k in metas["cpu"]}
+                for o in ("", "_d_first")}
+    loss_rel_f64 = {o: {k: abs(metas[f"gpu{o}"][k] - metas[f"gpu_f64{o}"][k])
+                        / max(abs(metas[f"gpu_f64{o}"][k]), 1e-30) for k in metas["cpu"]}
+                    for o in ("", "_d_first")}
+    old_p = [without_sn(x) for x in old]
+    new_p = {k: [without_sn(x) for x in v] for k, v in news.items()}
+    # every fp32 step against its order's float64 step; the kernels' noise
+    # scale is the CPU steps' worst kernel ratio there
+    held = {f"{run}{o}": gan_held(old_p, new_p[f"gpu_f64{o}"], new_p[f"{run}{o}"], 0.0)
+            for run in ("gpu", "cpu", "cpu_native_conv") for o in ("", "_d_first")}
+    cpu_noise = max([1.0] + [held[f"{run}{o}"]["worst"]["kernels"][0]
+                             for run in ("cpu", "cpu_native_conv") for o in ("", "_d_first")])
+    noise = GAN_WEIGHT_NOISE * cpu_noise
+    card = {o: gan_held(old_p, new_p[f"gpu_f64{o}"], new_p[f"gpu{o}"], noise)
+            for o in ("", "_d_first")}
+    # the two orders' D updates on the card: the same function of the same
+    # fakes, held by the same bars
+    orders_d = gan_held(old_p[1:], new_p["gpu"][1:], new_p["gpu_d_first"][1:], noise)
+    u_err = {o: max(float((news[f"gpu{o}"][1][k] - news[f"cpu{o}"][1][k]).abs().max())
+                    for k in old[1] if k.endswith("weight_u"))
+             for o in ("", "_d_first")}
+    # (conv_post's u has one entry, which stays at its sign)
+    u_moved = all(not torch.equal(news["gpu"][1][k], old[1][k]) for k in old[1]
+                  if k.endswith("weight_u") and old[1][k].numel() > 1)
+    worst_l2 = max(v for h in card.values() for v in h["l2_rel"])
+    margins = {"biases_and_scales": GAN_FP32_JUMPS / max(
+                   h["worst"]["biases_and_scales"][0] for h in card.values()),
+               "kernels": noise / max(h["worst"]["kernels"][0] for h in card.values()),
+               "l2": GAN_UPDATE_L2 / worst_l2}
+    step_vs_cpu = {
+        "batch": [seg_batch, pht.SEGMENT_SIZE], "optimizer": "SGD lr 1e-3", "amp": False,
+        "losses": {"g_first": metas["cpu"], "d_first": metas["cpu_d_first"],
+                   "g_first_f64": metas["gpu_f64"], "d_first_f64": metas["gpu_f64_d_first"]},
+        "loss_rel_err": loss_rel, "loss_rel_err_vs_f64": loss_rel_f64,
+        "against_f64": {k: {"worst": v["worst"], "l2_rel": v["l2_rel"]} for k, v in held.items()},
+        "cpu_noise_scale": cpu_noise, "kernels_bar": noise,
+        "biases_and_scales_bar": GAN_FP32_JUMPS, "l2_bar": GAN_UPDATE_L2,
+        "card_over_bar": {o: h["over"] for o, h in card.items()}, "margins": margins,
+        "u_max_abs_err": u_err, "u_moved": u_moved,
+        "d_update_orders_on_card": orders_d, "seconds": secs}
+    check(max(v for o in loss_rel.values() for v in o.values()) < 1e-3
+          and max(v for o in loss_rel_f64.values() for v in o.values()) < 1e-3
+          and not any(h["over"] for h in card.values()) and worst_l2 < GAN_UPDATE_L2
+          and max(u_err.values()) < 1e-4 and u_moved and not orders_d["over"],
+          f"hifigan: the fp32 step against float64 and the CPU: {step_vs_cpu}")
+
+    # ---- 2. AMP against fp32 ----
+    g, d = fresh(dev)
+    step = pht.make_gan_step(g, d, Sgd(g.parameters()), Sgd(d.parameters()), MelConfig(),
+                             use_amp=True)
+    amp_meta = {k: float(v) for k, v in step(seg.to(dev)).items()}
+    amp_rel = {k: abs(amp_meta[k] - metas["gpu"][k]) / abs(metas["gpu"][k])
+               for k in ("g_loss", "d_loss")}
+    check(max(amp_rel.values()) < 0.05 and all(np.isfinite(v) for v in amp_meta.values()),
+          f"hifigan: AMP losses {amp_meta} against fp32 {metas['gpu']}")
+    del g, d, step
+
+    # ---- 3. the warm start from reference-layout g_ / do_ files ----
+    g_path, do_path = os.path.join(work, "g_00004242"), os.path.join(work, "do_00004242")
+    torch.save({"generator": ups_to_reference(old[0])}, g_path)
+    mpd_sd = {k[len("mpd."):]: v for k, v in old[1].items() if k.startswith("mpd.")}
+    msd_sd = {k[len("msd."):]: v for k, v in old[1].items() if k.startswith("msd.")}
+    torch.save({"mpd": mpd_sd, "msd": msd_sd, "steps": 4242, "epoch": 7}, do_path)
+    warm_cfg = pht.HifiganTrainConfig(output_dir=os.path.join(work, "hifi_warm"))
+    pht.HifiganDiscriminator = disc_factory
+    try:
+        t0 = time.perf_counter()
+        warm = pht.HifiganTrainer(ds, warm_cfg, gen_cfg, device=dev)
+        warm.setup(resume=False, pretrained_g=g_path, pretrained_do=do_path)
+        sync()
+        warm_s = time.perf_counter() - t0
+        want_g = reference_effective_weights(ups_to_reference(old[0]))
+        want_d = reference_effective_weights({k: v for k, v in old[1].items()
+                                              if not k.startswith("msd.discriminators.0.")})
+        have_g, have_d = effective_weights(warm.gen), effective_weights(warm.disc)
+        rel = max(float((have[k] - v).abs().max() / max(float(v.abs().max()), 1e-30))
+                  for want, have in ((want_g, have_g), (want_d, have_d)) for k, v in want.items())
+        sd = warm.disc.state_dict()
+        spectral_equal = all(torch.equal(sd[k].cpu(), old[1][k]) for k in old[1]
+                             if k.startswith("msd.discriminators.0.")
+                             and k.endswith(("weight_orig", "weight_u")))
+        warm_rec = {"seconds": warm_s, "max_rel_err": rel, "spectral_equal": spectral_equal,
+                    "epoch": warm.epoch, "total_iter": warm.total_iter,
+                    "keys": [len(want_g), len(want_d)]}
+        check(rel < 1e-5 and spectral_equal and warm.epoch == 8 and warm.total_iter == 4242,
+              f"hifigan: the warm start {warm_rec}")
+        del warm
+
+        # ---- 4. the path: the v2 pipeline from the dataset to both exports ----
+        pipe_ds = os.path.join(work, "pipe_voice")
+        os.makedirs(pipe_ds)
+        os.symlink(os.path.join(ds, "wavs"), os.path.join(pipe_ds, "wavs"))
+        for f in ("metadata.csv", "cmudict.txt"):
+            shutil.copyfile(os.path.join(ds, f), os.path.join(pipe_ds, f))
+        out_dir = os.path.join(work, "pipe_out")
+        trainers, steps, saves, epochs, marks = [], [], [], [], {}
+
+        def watch(tr, tag):
+            real = tr._step_fn
+
+            def counted(wav):
+                counts = dict(_cuda.LAUNCHES)
+                sync()
+                t = time.perf_counter()
+                meta = real(wav)
+                sync()
+                steps.append({"run": tag, "ms": (time.perf_counter() - t) * 1e3,
+                              "launches": {k: _cuda.LAUNCHES[k] - counts[k] for k in counts},
+                              **{k: float(v) for k, v in meta.items()}})
+                return meta
+
+            real_epoch, real_save = tr.run_epoch, tr.ckpt.save
+
+            def run_epoch():
+                t = time.perf_counter()
+                losses = real_epoch()
+                epochs.append({"run": tag, "seconds": time.perf_counter() - t,
+                               "steps": len(losses), "meter_frames_s": tr.meter.mean()})
+                return losses
+
+            def save(*a, **kw):
+                p = real_save(*a, **kw)
+                saves.append(dict(tr.ckpt.last_save))
+                return p
+
+            tr._step_fn, tr.run_epoch, tr.ckpt.save = counted, run_epoch, save
+            return real
+
+        def on_trainer(tr):
+            trainers.append(tr)
+            if isinstance(tr, pht.HifiganTrainer):
+                sync()
+                marks["hand_off"] = time.perf_counter()
+                marks["launches_at_hand_off"] = dict(_cuda.LAUNCHES)
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats()
+                marks["real_step"] = watch(tr, "pipeline")
+                real_export = tr.export
+
+                def export(*a, **kw):
+                    t = time.perf_counter()
+                    path = real_export(*a, **kw)
+                    marks["export_s"] = time.perf_counter() - t
+                    return path
+
+                tr.export = export
+
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train_v2_pipeline(
+            PipelineConfig(dataset_path=pipe_ds, output_path=out_dir, batch_size=32,
+                           max_fp_epochs=2, max_hifi_epochs=2, voice_name="smoke"),
+            fp_cfg, gen_cfg, on_trainer=on_trainer, device=dev)
+        sync()
+        pipe_s = time.perf_counter() - t0
+        hifi_s = time.perf_counter() - marks["hand_off"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+        hifi = trainers[-1]
+        fp_path, hg_path = res["exports"]
+        pipe_steps = [s for s in steps if s["run"] == "pipeline"]
+        hg = torch.load(hg_path, map_location="cpu", weights_only=True)
+        ref_keys = set()
+        for r in v2_generator_rules(num_ups=len(gen_cfg.upsample_rates),
+                                    num_kernels=len(gen_cfg.resblock_kernel_sizes),
+                                    num_dilations=len(gen_cfg.resblock_dilation_sizes[0])):
+            ref_keys |= ({r.torch_key + ".weight_g", r.torch_key + ".weight_v"}
+                         if r.kind.startswith("wn_") else {r.torch_key})
+        loaded = Generator(gen_cfg)
+        load_hifigan_generator(hg_path, loaded)
+        want_lr = float(np.float32(2e-4 * 0.999 ** 2))
+        n_epoch = len(hifi.sampler)
+        check(os.path.exists(fp_path) and os.path.exists(hg_path) and list(hg) == ["generator"]
+              and set(hg["generator"]) == ref_keys
+              and all(v.dtype == torch.float32 for v in hg["generator"].values()),
+              f"hifigan: the exports {res['exports']}, .hg.pt keys {list(hg)[:3]}")
+        check(len(pipe_steps) == 2 * n_epoch and hifi.total_iter == 2 * n_epoch
+              and hifi.epoch == 2 and all(np.isfinite(s["mel_l1"]) for s in pipe_steps)
+              and hifi.g_opt.lr == hifi.d_opt.lr == want_lr
+              and all(s["launches"]["fused_stft"] == 2 * kernel_launch
+                      and s["launches"]["mas"] == 0 for s in pipe_steps),
+              f"hifigan: the pipeline's HiFi-GAN stage: {len(pipe_steps)} steps of "
+              f"{2 * n_epoch}, epoch {hifi.epoch}, lr {hifi.g_opt.lr} (want {want_lr}), "
+              f"launches {[s['launches'] for s in pipe_steps[:3]]}, mel L1 "
+              f"{[s['mel_l1'] for s in pipe_steps][:8]}")
+
+        # ---- 5. the resume, bit for bit, then one more epoch ----
+        t0 = time.perf_counter()
+        resumed = pht.HifiganTrainer(pipe_ds, hifi.cfg, gen_cfg, device=dev)
+        resumed.setup()
+        sync()
+        resume_s = time.perf_counter() - t0
+
+        def same_state(a, b):
+            sa, sb = a.state_dict(), b.state_dict()
+            return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+        def same_opt(a, b):
+            s1, s2 = a.state_dict(), b.state_dict()
+            return ((s1["count"], s1["lr"]) == (s2["count"], s2["lr"])
+                    and all(torch.equal(x, y) for n in ("mu", "nu") for x, y in zip(s1[n], s2[n])))
+
+        same = (same_state(hifi.gen, resumed.gen) and same_state(hifi.disc, resumed.disc)
+                and same_opt(hifi.g_opt, resumed.g_opt) and same_opt(hifi.d_opt, resumed.d_opt)
+                and (resumed.epoch, resumed.total_iter, resumed.early.to_dict())
+                == (hifi.epoch, hifi.total_iter, hifi.early.to_dict()))
+        check(same, "hifigan: the resumed trainer differs from the one it resumed")
+        real_step = watch(resumed, "resumed")
+        resumed.train(max_epochs=1)
+        sync()
+        more = [s for s in steps if s["run"] == "resumed"]
+        check(len(more) == n_epoch and resumed.total_iter == 3 * n_epoch
+              and all(s["launches"]["fused_stft"] == 2 * kernel_launch
+                      and s["launches"]["mas"] == 0 and np.isfinite(s["mel_l1"]) for s in more),
+              f"hifigan: the resumed epoch: {len(more)} steps, {resumed.total_iter} in all")
+
+        # ---- 6. three v2 requests on what the pipeline trained ----
+        fp_model = FastPitch(fp_cfg)
+        load_fastpitch_checkpoint(fp_path, fp_model)
+        v2 = V2InferenceModel(fp_model.to(dev), loaded.to(dev))
+        requests = []
+        for i, text in enumerate(V2_REQUESTS):
+            path = os.path.join(out_dir, f"req_{i}.wav")
+            t0 = time.perf_counter()
+            v2.export_wav(text, path)
+            sync()
+            sec = time.perf_counter() - t0
+            ids = np.pad(v2.tp.encode(text), (0, 256 - len(v2.tp.encode(text))))
+            wav, lens = v2.infer(torch.from_numpy(ids.astype(np.int64))[None].to(dev))
+            sr, pcm = wavfile.read(path)
+            requests.append({"text": text, "seconds": sec, "dec_lens": int(lens[0]),
+                             "samples": len(pcm)})
+            check(sr == SR and len(pcm) == HOP * int(lens[0]) > 0
+                  and bool(torch.isfinite(wav).all()), f"hifigan: v2 request {requests[-1]}")
+        launches = dict(_cuda.LAUNCHES)  # the end of the hifigan path
+
+        # ---- 7. outside the path: d_first steps, a profiled pass, the mels ----
+        wav = resumed._to_device(next(resumed.sampler.epoch()))
+        d_first = pht.make_gan_step(resumed.gen, resumed.disc, resumed.g_opt, resumed.d_opt,
+                                    MelConfig(), use_amp=True, d_first=True)
+        d_first_ms = []
+        for _ in range(5):
+            sync()
+            t = time.perf_counter()
+            d_first(wav)
+            sync()
+            d_first_ms.append((time.perf_counter() - t) * 1e3)
+
+        def ten_steps():
+            return [real_step(wav) for _ in range(10)]
+
+        _, prof = profiled(ten_steps, named=("fused_stft_kernel", "fft")) if on_card else (
+            ten_steps(), {})
+        y_gen = torch.randn(wav.shape[0], wav.shape[-1], device=dev) * 0.3
+        target = mel_spectrogram_fused(wav[:, 0], LOSS_MEL, center=False, mag_eps=1e-9)
+
+        def generated_side():  # forward and backward of the differentiable loss mel
+            y = y_gen.clone().requires_grad_(True)
+            loss = (mel_spectrogram_hifigan(y, LOSS_MEL) - target).abs().mean()
+            return torch.autograd.grad(loss, y)
+
+        def fused_two():  # the step's two launches
+            return (mel_spectrogram_fused(wav[:, 0], MelConfig(), center=False, mag_eps=1e-9),
+                    mel_spectrogram_fused(wav[:, 0], LOSS_MEL, center=False, mag_eps=1e-9))
+
+        mel_ms = {}
+        if on_card:  # the call as the host sees it, and device busy under the profiler
+            for key, fn in (("generated_side_fwd_bwd", generated_side),
+                            ("fused_two_launches", fused_two)):
+                _, p10 = profiled(lambda: [fn() for _ in range(10)])
+                busy = p10.get("device_busy_ms")
+                mel_ms[key] = {"call_ms": cuda_ms(fn),
+                               "device_busy_ms": busy / 10 if busy is not None else p10["device"],
+                               "kernels_a_call": p10.get("kernels", 0) / 10}
+    finally:
+        pht.HifiganDiscriminator = full_disc
+
+    warm_steps = [s["ms"] for s in pipe_steps[1:]]
+    per_step_frames = hifi.cfg.batch_size * (pht.SEGMENT_SIZE // HOP)
+    record = {
+        "config": "HifiganConfig() and HifiganDiscriminator() (full width), seeded; "
+                  "the pipeline on FastPitchConfig()",
+        "params": {"generator": n_g, "mpd": n_mpd, "msd": n_msd}, "gpu": smi,
+        "step_vs_cpu": step_vs_cpu, "amp_vs_fp32": {"amp": amp_meta, "rel": amp_rel},
+        "warm_start": warm_rec,
+        "pipeline": {"seconds": pipe_s, "hifigan_stage_seconds": hifi_s,
+                     "fastpitch": res["fastpitch"], "hifigan": res["hifigan"],
+                     "exports": {os.path.basename(p): os.path.getsize(p) / 1e6
+                                 for p in res["exports"]},
+                     "launches_at_hand_off": marks["launches_at_hand_off"],
+                     "trainers": [type(t).__name__ for t in trainers],
+                     "batch": hifi.cfg.batch_size, "data_mult": hifi.sampler.data_mult,
+                     "steps_an_epoch": n_epoch, "lr_after": hifi.g_opt.lr,
+                     "peak_memory_gb": peak_gb},
+        "step_ms": {"first": pipe_steps[0]["ms"], "warm_median": float(np.median(warm_steps)),
+                    "warm_min": min(warm_steps), "warm_max": max(warm_steps),
+                    "d_first_warm": d_first_ms[1:], "d_first_first": d_first_ms[0]},
+        "mel_frames_per_step": per_step_frames,
+        "mel_frames_per_s_warm_median": per_step_frames / (np.median(warm_steps) / 1e3),
+        "epochs": epochs, "checkpoints": saves, "resume_seconds": resume_s,
+        "export": {"seconds": marks["export_s"], "mbytes": os.path.getsize(hg_path) / 1e6},
+        "mel_l1": {"first": pipe_steps[0]["mel_l1"], "last": more[-1]["mel_l1"]},
+        "requests": requests, "profiled_10_steps": prof, "loss_mels": mel_ms,
+        "launches": launches, "tf32": False,
+        "launches_per_step": {k: sum(s["launches"][k] for s in pipe_steps) / len(pipe_steps)
+                              for k in ("fused_stft", "mas")},
+        "phase_seconds": time.perf_counter() - t_phase}
+    return launches, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2374,7 +2935,7 @@ def main() -> int:
     from xva_trainer_tpu_torch.ops import fused_stft as fs
     from xva_trainer_tpu_torch.ops import mas
     from xva_trainer_tpu_torch.ops.features import featurize_batch
-    from xva_trainer_tpu_torch.ops.stft import DEFAULT_MEL, mel_basis
+    from xva_trainer_tpu_torch.ops.stft import DEFAULT_MEL, LOSS_MEL, mel_basis
     from xva_trainer_tpu_torch.serve import (export_wav, load_xvapitch, synthesize_v3,
                                              text_tokens, voice_convert)
 
@@ -2399,17 +2960,20 @@ def main() -> int:
     nyquist = torch.from_numpy(0.5 * (-1.0) ** np.arange(32 * HOP)).float().to(dev)
     silence = torch.zeros((2, 32 * HOP), device=dev)
     cases, max_err, mean_err = [], 0.0, 0.0
-    for name, y, center, eps in (("tacotron", raw_d, True, 0.0),
-                                 ("hifigan", raw_d, False, 1e-9),
-                                 ("prepadded", bucket, None, 0.0),
-                                 ("short", short, True, 0.0),
-                                 ("nyquist", nyquist, True, 0.0),
-                                 ("silence", silence, True, 0.0)):
-        f64 = rfft_reference(y, cfg, center, eps)
+    # hifigan_loss: the HiFi-GAN loss mel, the full band (its top filter ends
+    # at the Nyquist bin)
+    for name, y, center, eps, mcfg in (("tacotron", raw_d, True, 0.0, cfg),
+                                       ("hifigan", raw_d, False, 1e-9, cfg),
+                                       ("hifigan_loss", raw_d, False, 1e-9, LOSS_MEL),
+                                       ("prepadded", bucket, None, 0.0, cfg),
+                                       ("short", short, True, 0.0, cfg),
+                                       ("nyquist", nyquist, True, 0.0, cfg),
+                                       ("silence", silence, True, 0.0, cfg)):
+        f64 = rfft_reference(y, mcfg, center, eps)
         for lin in (True, False):
             kw = dict(center=center, mag_eps=eps, return_linear=lin)
-            out = fs.mel_spectrogram_fused(y, cfg, **kw)
-            ref = fs.mel_spectrogram_fused_reference(y, cfg, **kw)
+            out = fs.mel_spectrogram_fused(y, mcfg, **kw)
+            ref = fs.mel_spectrogram_fused_reference(y, mcfg, **kw)
             torch.cuda.synchronize()
             for part, o, r, r64 in zip(("mel", "linear"),
                                        *((out, ref) if lin else ([out], [ref])), f64):
@@ -2433,11 +2997,12 @@ def main() -> int:
     # the 512-point complex FFT into bins and magnitudes (4 for the Nyquist
     # bin), and the sparse mel product.
     fb = mel_basis(cfg, dev)
+    fb_loss = mel_basis(LOSS_MEL, dev)
     mel_nnz = int((fb != 0).sum())
     n = cfg.n_fft
 
-    def bound(B, T, F, linear=True):
-        flops = B * F * (n + 2.5 * n * np.log2(n) + 4 * cfg.n_freqs + 2 * mel_nnz
+    def bound(B, T, F, linear=True, nnz=mel_nnz):
+        flops = B * F * (n + 2.5 * n * np.log2(n) + 4 * cfg.n_freqs + 2 * nnz
                          + 2 * cfg.n_mels)
         nbytes = 4 * (B * T + B * F * (cfg.n_mels + (cfg.n_freqs if linear else 0)))
         t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_HBM_BYTES_S * 1e3
@@ -2455,6 +3020,14 @@ def main() -> int:
         spec = torch.stft(y, cfg.n_fft, cfg.hop_length, window=window, center=center,
                           pad_mode="reflect", return_complex=True).abs()
         return torch.log(torch.clamp(fb @ spec, min=cfg.clip_val)), spec
+
+    def library_hifigan(y, basis):  # the same chain with HiFi-GAN's framing and eps
+        pad = (cfg.n_fft - cfg.hop_length) // 2
+        yp = torch.nn.functional.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
+        spec = torch.stft(yp, cfg.n_fft, cfg.hop_length, window=window, center=False,
+                          return_complex=True)
+        mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+        return torch.log(torch.clamp(basis @ mag, min=cfg.clip_val))
 
     fns = {"ms": lambda y, c: fs.mel_spectrogram_fused(y, cfg, center=c, return_linear=True),
            "plain_ms": lambda y, c: fs.mel_spectrogram_fused_reference(y, cfg, center=c,
@@ -2492,26 +3065,51 @@ def main() -> int:
         tb[f"{key}_gb_per_s"] = 4 * buf.numel() / tb[f"{key}_ms"] / 1e6
     # the train step's own shapes: materialize_spec's linear spectrogram of a
     # 64 x 768-frame bucket's audio, and the mel loss's real side on the
-    # 64 segments of 32 frames (mel only); both center=True, 2 launches a step
+    # 64 segments of 32 frames (mel only); both center=True, 2 launches a
+    # step. The HiFi-GAN step's: its input mel (MelConfig()) and the real
+    # side of its loss mel (LOSS_MEL) on 16 segments of 8 192 samples, mel
+    # only, center=False, 1 launch each a step. At each, the kernel is held
+    # to its plain version as in the cases above
     step_shapes = {}
-    for key, Bs, Ts, lin in (("materialize_spec", 64, 768 * HOP, True),
-                             ("mel_loss_real", 64, 32 * HOP, False)):
+    for key, Bs, Ts, lin, mcfg in (("materialize_spec", 64, 768 * HOP, True, cfg),
+                                   ("mel_loss_real", 64, 32 * HOP, False, cfg),
+                                   ("gan_mel_in", 16, 8192, False, cfg),
+                                   ("gan_loss_mel_real", 16, 8192, False, LOSS_MEL)):
         y = torch.from_numpy(np.random.default_rng(4).uniform(-0.5, 0.5, (Bs, Ts))
                              .astype(np.float32)).to(dev)
-        calls = {"ms": functools.partial(fs.mel_spectrogram_fused, y, cfg, center=True,
-                                         return_linear=lin),
-                 "plain_ms": functools.partial(fs.mel_spectrogram_fused_reference, y, cfg,
-                                               center=True, return_linear=lin),
-                 "library_ms": functools.partial(library, y, True)}
+        gan = key.startswith("gan_")
+        kw = dict(center=False, mag_eps=1e-9) if gan else dict(center=True)
+        # the kernel against its plain version at the step's own shape
+        out = fs.mel_spectrogram_fused(y, mcfg, return_linear=lin, **kw)
+        ref = fs.mel_spectrogram_fused_reference(y, mcfg, return_linear=lin, **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for part, o, r in zip(("mel", "linear"), *((out, ref) if lin else ([out], [ref]))):
+            d = (o - r).abs()
+            errs[part] = {"mean_abs_err": d.mean().item(), "max_abs_err": d.max().item()}
+            check(errs[part]["mean_abs_err"] < TOL and errs[part]["max_abs_err"] < TOL
+                  and bool(torch.isfinite(o).all()) and o.shape == r.shape,
+                  f"fused_stft at the step shape {key} ({Bs}, {Ts}) {kw} {part}: {errs[part]}")
+        max_err = max([max_err] + [e["max_abs_err"] for e in errs.values()])
+        mean_err = max([mean_err] + [e["mean_abs_err"] for e in errs.values()])
+        calls = {"ms": functools.partial(fs.mel_spectrogram_fused, y, mcfg, return_linear=lin,
+                                         **kw),
+                 "plain_ms": functools.partial(fs.mel_spectrogram_fused_reference, y, mcfg,
+                                               return_linear=lin, **kw),
+                 "library_ms": (functools.partial(library_hifigan, y,
+                                                  fb_loss if mcfg is LOSS_MEL else fb)
+                                if gan else functools.partial(library, y, True))}
         runs = {key2: [] for k in calls for key2 in (k, k.replace("ms", "device_ms"))}
         for order in (list(calls), list(calls)[::-1]):
             for k in order:
                 runs[k].append(cuda_ms(calls[k], flush=flush))
                 runs[k.replace("ms", "device_ms")].append(device_ms(calls[k], flush))
-        Fs = 1 + Ts // cfg.hop_length
-        _, s_bytes, s_bound_ms, s_bound_by = bound(Bs, Ts, Fs, linear=lin)
+        Fs = 1 + (Ts - cfg.hop_length) // cfg.hop_length if gan else 1 + Ts // cfg.hop_length
+        nnz = int((mel_basis(mcfg, dev) != 0).sum())
+        _, s_bytes, s_bound_ms, s_bound_by = bound(Bs, Ts, Fs, linear=lin, nnz=nnz)
         t = {k: sum(v) / len(v) for k, v in runs.items()}
-        t.update(shape=[Bs, Ts], frames=Fs, linear=lin, launches_per_step=1, mbytes=s_bytes / 1e6,
+        t.update(shape=[Bs, Ts], frames=Fs, linear=lin, errors=errs, mbytes=s_bytes / 1e6,
+                 mel_config="LOSS_MEL (fmax None)" if mcfg is LOSS_MEL else "MelConfig()",
                  bound_ms=s_bound_ms, bound_by=s_bound_by,
                  bound_share_of_device_ms=s_bound_ms / t["device_ms"], runs=runs)
         step_shapes[key] = t
@@ -2715,6 +3313,9 @@ def main() -> int:
         ml_launches, _ = multilingual_phase(cfg_m, dev, smi, data_ctx, ckpt, data_work)
         fp_launches, fp_record, _ = fastpitch_phase(
             dev, smi, data_work, os.path.join(data_ctx["dataset"], "wavs"))
+        hg_launches, hg_record = hifigan_phase(dev, smi, data_work,
+                                               os.path.join(data_work, "v2_voice"))
+        emit("hifigan", **hg_record)
         # the least time for the v2 build's launches (mel only): each group's
         # bound, summed
         fp_build = fp_record["cache_build"]
@@ -2729,36 +3330,52 @@ def main() -> int:
     # the least time for the build's 32 launches: each group's bound, summed
     build["fused_stft_bound_ms"] = sum(bound(gB, gT, 1 + (gT - n) // cfg.hop_length)[2]
                                        for gB, gT in build["group_shapes"])
-    # the build's shapes timed alone: the kernel, its plain version and the
-    # torch.stft chain at each slot length (8 clips, pre-padded, linear on),
-    # each summed over the groups of that length
-    build_shapes = []
-    for T in sorted({gT for _, gT in build["group_shapes"]}):
-        gB = max(b for b, t in build["group_shapes"] if t == T)
-        count = sum(1 for _, t in build["group_shapes"] if t == T)
-        y = torch.from_numpy(np.random.default_rng(T).uniform(-0.5, 0.5, (gB, T))
-                             .astype(np.float32)).to(dev)
-        calls = {"ms": functools.partial(fns["ms"], y, None),
-                 "plain_ms": functools.partial(fns["plain_ms"], y, None),
-                 "library_ms": functools.partial(library, y, False)}
-        runs = {k2: [] for k in calls for k2 in (k, k.replace("ms", "device_ms"))}
-        for order in (list(calls), list(calls)[::-1]):
-            for k in order:
-                runs[k].append(cuda_ms(calls[k], iters=10, flush=flush))
-                runs[k.replace("ms", "device_ms")].append(device_ms(calls[k], flush, iters=10))
-        t = {k: sum(v) / len(v) for k, v in runs.items()}
-        t.update(shape=[gB, T], groups=count,
-                 bound_ms=bound(gB, T, 1 + (T - n) // cfg.hop_length)[2])
-        build_shapes.append(t)
+    # each build's shapes timed alone: the kernel, its plain version and the
+    # torch.stft chain at each slot length (8 clips, pre-padded; linear on in
+    # the v3 build, mel only in the v2 build), each summed over the groups of
+    # that length
+    def by_slot(group_shapes, linear):
+        out = []
+        for T in sorted({gT for _, gT in group_shapes}):
+            gB = max(b for b, t in group_shapes if t == T)
+            count = sum(1 for _, t in group_shapes if t == T)
+            y = torch.from_numpy(np.random.default_rng(T).uniform(-0.5, 0.5, (gB, T))
+                                 .astype(np.float32)).to(dev)
+            calls = {"ms": functools.partial(fs.mel_spectrogram_fused, y, cfg, center=None,
+                                             return_linear=linear),
+                     "plain_ms": functools.partial(fs.mel_spectrogram_fused_reference, y, cfg,
+                                                   center=None, return_linear=linear),
+                     "library_ms": functools.partial(library, y, False)}
+            runs = {k2: [] for k in calls for k2 in (k, k.replace("ms", "device_ms"))}
+            for order in (list(calls), list(calls)[::-1]):
+                for k in order:
+                    runs[k].append(cuda_ms(calls[k], iters=10, flush=flush))
+                    runs[k.replace("ms", "device_ms")].append(device_ms(calls[k], flush,
+                                                                        iters=10))
+            t = {k: sum(v) / len(v) for k, v in runs.items()}
+            t.update(shape=[gB, T], groups=count,
+                     bound_ms=bound(gB, T, 1 + (T - n) // cfg.hop_length, linear=linear)[2])
+            out.append(t)
+        return out
+
+    build_shapes = by_slot(build["group_shapes"], True)
     build["by_slot"] = build_shapes
     for key in ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
                 "library_device_ms", "bound_ms"):
         build[f"fused_stft_32_{key}"] = sum(t[key] * t["groups"] for t in build_shapes)
+    v2_shapes = by_slot(fp_build["group_shapes"], False)
+    for key in ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+                "library_device_ms", "bound_ms"):
+        fp_build[f"fused_stft_all_{key}"] = sum(t[key] * t["groups"] for t in v2_shapes)
     emit("cache_build_shapes", by_slot=build_shapes,
-         sums={k: v for k, v in build.items() if k.startswith("fused_stft_32_")}, gpu=smi)
+         sums={k: v for k, v in build.items() if k.startswith("fused_stft_32_")},
+         v2_by_slot=v2_shapes,
+         v2_sums={k: v for k, v in fp_build.items() if k.startswith("fused_stft_all_")},
+         gpu=smi)
     train_launches, train = train_phases(cfg_m, dev)
     by_path = {"serve": launches, "data": data_launches, "loop": loop_launches,
-               "multilingual": ml_launches, "fastpitch": fp_launches, "train": train_launches}
+               "multilingual": ml_launches, "fastpitch": fp_launches, "hifigan": hg_launches,
+               "train": train_launches}
 
     kernels = [{
         "name": "fused_stft", "route": "cuda",
@@ -2770,9 +3387,16 @@ def main() -> int:
         "plain_device_ms": tb["plain_device_ms"], "library_device_ms": tb["library_device_ms"],
         "launches_by_path": {p: c["fused_stft"] for p, c in by_path.items()},
         "launches_per_train_step": train_launches["fused_stft"] / train["timed_steps"],
+        "launches_per_hifigan_step": hg_record["launches_per_step"]["fused_stft"],
         "v2_cache_build": {k: fp_build[k] for k in ("fused_stft_launches", "groups",
                                                     "fused_stft_device_ms",
-                                                    "fused_stft_bound_ms", "seconds")},
+                                                    "fused_stft_bound_ms", "seconds",
+                                                    "fused_stft_all_ms",
+                                                    "fused_stft_all_device_ms",
+                                                    "fused_stft_all_plain_ms",
+                                                    "fused_stft_all_plain_device_ms",
+                                                    "fused_stft_all_library_ms",
+                                                    "fused_stft_all_library_device_ms")},
         "cache_build": {k: build[k] for k in ("fused_stft_launches", "featurize_groups",
                                               "fused_stft_device_ms", "fused_stft_bound_ms",
                                               "seconds", "fused_stft_32_ms",
@@ -2783,8 +3407,7 @@ def main() -> int:
         "train_step_shapes": {k: {m: v[m] for m in ("shape", "linear", "ms", "device_ms",
                                                     "plain_ms", "plain_device_ms",
                                                     "library_ms", "library_device_ms",
-                                                    "bound_ms", "bound_by",
-                                                    "launches_per_step")}
+                                                    "bound_ms", "bound_by", "errors")}
                               for k, v in step_shapes.items()},
     }, {
         "name": "mas", "route": "cuda", "source": "xva_trainer_tpu_torch/csrc/mas.cu",
@@ -2812,6 +3435,7 @@ def main() -> int:
                                          ("loop", ["fused_stft", "mas"]),
                                          ("multilingual", ["fused_stft", "mas"]),
                                          ("fastpitch", ["fused_stft", "mas"]),
+                                         ("hifigan", ["fused_stft"]),
                                          ("train", ["fused_stft", "mas"]))
                for k in ks if by_path[p][k] < 1]
     check(not missing, f"a main path launched no {missing}")

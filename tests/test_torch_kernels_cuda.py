@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the fused STFT kernel within 1e-3, the MAS kernel with identical paths, a
-v3 feature cache built on the card against the same cache built on the
-CPU, and the v3 trainer loop at the tiny config through both kernels (a
-checkpoint, a resume and an export).
+the fused STFT kernel within 1e-3 (the HiFi-GAN loss mel's full band
+included), the MAS kernel with identical paths, a v3 feature cache built on
+the card against the same cache built on the CPU, the FastPitch and
+HiFi-GAN steps' launches, and the v3 trainer loop at the tiny config
+through both kernels (a checkpoint, a resume and an export).
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skips elsewhere. Run on the card
 (``--noconftest``: tests/conftest.py imports JAX, which the card's machine
@@ -67,6 +68,24 @@ def test_kernel_matches_plain(cuda, center, mag_eps, return_linear):
     pairs = zip(out, ref) if return_linear else [(out, ref)]
     for o, r in pairs:
         assert o.shape == r.shape and o.is_cuda
+        d = (o - r).abs()
+        assert d.mean().item() < TOL and d.max().item() < TOL
+
+
+@pytest.mark.parametrize("return_linear", [True, False])
+def test_kernel_hifigan_loss_mel(cuda, return_linear):
+    """The HiFi-GAN loss mel: ``LOSS_MEL`` (the full band, its top filter
+    ending at the Nyquist bin), ``center=False``, ``mag_eps`` 1e-9, held to
+    the plain version, at the GAN step's shape (16 segments of 8 192)."""
+    from xva_trainer_tpu_torch.ops.stft import LOSS_MEL
+
+    y = _bucket(cuda, B=16, T=8192)
+    kw = dict(center=False, mag_eps=1e-9, return_linear=return_linear)
+    out = fs.mel_spectrogram_fused(y, LOSS_MEL, **kw)
+    ref = fs.mel_spectrogram_fused_reference(y, LOSS_MEL, **kw)
+    torch.cuda.synchronize()
+    for o, r in (zip(out, ref) if return_linear else [(out, ref)]):
+        assert o.shape == r.shape and o.is_cuda and bool(torch.isfinite(o).all())
         d = (o - r).abs()
         assert d.mean().item() < TOL and d.max().item() < TOL
 
@@ -320,6 +339,35 @@ def test_fastpitch_steps_on_card(cuda):
         torch.cuda.synchronize()
         assert _cuda.LAUNCHES["mas"] - before == launches, stage
         assert all(bool(torch.isfinite(v).all()) for v in meta.values()), meta
+
+
+# ---------------- the v2 HiFi-GAN step ----------------
+
+
+@pytest.mark.parametrize("d_first", [False, True], ids=["g_first", "d_first"])
+def test_hifigan_step_on_card(cuda, d_first):
+    """The GAN step at a small width on the card under AMP, in both orders:
+    2 ``fused_stft`` launches (the input mel and the real side of the loss
+    mel), no MAS; finite losses; the spectral norm's u moved."""
+    from xva_trainer_tpu_torch.models.hifigan import (Generator, HifiganConfig,
+                                                      HifiganDiscriminator)
+    from xva_trainer_tpu_torch.train import hifigan_trainer as pht
+    from xva_trainer_tpu_torch.train.optim import GanOptimizer
+
+    torch.manual_seed(0)
+    gen = Generator(HifiganConfig(upsample_initial_channel=32)).to(cuda)
+    disc = HifiganDiscriminator((2, 3), 2).to(cuda)
+    step = pht.make_gan_step(gen, disc, GanOptimizer(gen.parameters(), 2e-4, gamma=1.0),
+                             GanOptimizer(disc.parameters(), 2e-4, gamma=1.0),
+                             use_amp=True, d_first=d_first)
+    u = disc.msd.discriminators[0].convs[0].weight_u.clone()
+    before = dict(_cuda.LAUNCHES)
+    meta = step(_bucket(cuda, B=4, T=pht.SEGMENT_SIZE)[:, None])
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["fused_stft"] - before["fused_stft"] == 2
+    assert _cuda.LAUNCHES["mas"] == before["mas"]
+    assert all(bool(torch.isfinite(v).all()) for v in meta.values()), meta
+    assert not torch.equal(u, disc.msd.discriminators[0].convs[0].weight_u)
 
 
 # ---------------- the v3 trainer loop ----------------

@@ -70,6 +70,37 @@ def hifigan_v2_state_dict(jax_params_as_numpy: Dict, cfg) -> Dict[str, torch.Ten
     return _tensors(apply_carry(jax_params_as_numpy, rules))
 
 
+def hifigan_v2_disc_state_dict(jax_params_as_numpy: Dict,
+                               jax_batch_stats_as_numpy: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX ``HifiganDiscriminator``'s parameters and spectral-norm
+    ``batch_stats`` (numpy, with or without the top-level keys) → the fp32
+    state dict of the port's ``HifiganDiscriminator`` with as many periods
+    and scales: the weight norms carried as in ``xvapitch_state_dict``; MSD
+    disc 0's kernels as ``weight_orig`` and its ``u`` as ``weight_u``, then
+    ``import_msd_spectral`` (``weight_v`` = normalize(Wᵀu), which the forward
+    never reads)."""
+    from .hifigan_map import SPECTRAL_CONVS, import_msd_spectral, v2_mpd_rules, v2_msd_wn_rules
+    from .mapping import _f2t
+
+    params = jax_params_as_numpy.get("params", jax_params_as_numpy)
+    stats = jax_batch_stats_as_numpy.get("batch_stats", jax_batch_stats_as_numpy)
+    mpd, msd = params["MultiPeriodDiscriminator_0"], params["MultiScaleDiscriminator_0"]
+    sd = apply_carry(params, v2_mpd_rules(num_periods=len(mpd))
+                     + v2_msd_wn_rules(num_scales=len(msd)))
+    s_params = msd["DiscriminatorS_0"]
+    s_stats = stats["MultiScaleDiscriminator_0"]["DiscriminatorS_0"]
+    spectral = {}
+    for i, name in enumerate(SPECTRAL_CONVS):
+        key = f"msd.discriminators.0.{name}"
+        conv = s_params[f"Conv_{i}"]
+        spectral[key + ".weight_orig"] = _f2t(np.asarray(conv["kernel"], np.float32), "conv1d")
+        spectral[key + ".bias"] = conv["bias"]
+        spectral[key + ".weight_u"] = s_stats[f"SpectralNorm_{i}"][f"Conv_{i}/kernel/u"].reshape(-1)
+    sd.update((k, np.array(v, np.float32, order="C"))
+              for k, v in import_msd_spectral(spectral).items())
+    return _tensors(sd)
+
+
 def _norm_except(w: torch.Tensor, dim: int) -> torch.Tensor:
     dims = [d for d in range(w.dim()) if d != dim]
     return torch.sqrt(torch.sum(w * w, dim=dims, keepdim=True))
@@ -79,15 +110,18 @@ def _renorm(sd: Dict[str, torch.Tensor], src_dim: int, dst_dim: int) -> Dict[str
     """Re-split each upsampling (weight_g, weight_v) pair normalised over
     ``src_dim`` into one normalised over ``dst_dim``: the effective weight
     w = g v / ||v|| is kept (computed in float64), v = w and g = ||w||.
-    Pairs already over ``dst_dim`` pass through."""
+    Pairs not in ``src_dim``'s layout (g of v's size along ``src_dim``, 1
+    elsewhere) pass through: they are over ``dst_dim`` already."""
     out = OrderedDict(sd)
     for kg in sd:
         if not _UPS_G.search(kg):
             continue
         g = sd[kg]
-        if g.shape[src_dim] == 1:
-            continue  # already normalised over dst_dim
         kv = kg[:-1] + "v"
+        src_shape = [1] * sd[kv].dim()
+        src_shape[src_dim] = sd[kv].shape[src_dim]
+        if list(g.shape) != src_shape:
+            continue  # already normalised over dst_dim
         v = sd[kv].double()
         w = g.double() * v / _norm_except(v, src_dim)
         out[kg] = _norm_except(w, dst_dim).to(torch.float32)

@@ -17,7 +17,7 @@ class VitsDiscriminator(nn.Module):
         super().__init__()
         # the v3 scale spec (16→64→256→1024, stride 4; reference
         # python/xvapitch/model.py:1560-1568), not the v2 MSD's
-        self.nets = nn.ModuleList([DiscriminatorS(scale_specs)]
+        self.nets = nn.ModuleList([DiscriminatorS(specs=scale_specs)]
                                   + [DiscriminatorP(p) for p in periods])
 
     def forward(self, x, x_hat=None):

@@ -27,9 +27,10 @@ torch's ``weight_norm(dim=0)`` stores it, ``weight_v`` the effective weight
 and ``weight_g`` its norm over dim 0 (the decoder's ``ups`` included, whose
 dim 0 is the input channel), computed in float64 from the pair as the port
 holds it (flax's: ``weight_v`` the kernel, ``weight_g`` the scale, over the
-output axis). The v2 export (``export_fastpitch_v2``) is FastPitch's fp16
-reference-layout state dict with its extra keys, and the same metadata JSON
-as the JAX package's.
+output axis). The v2 exports are FastPitch's fp16 reference-layout state
+dict with its extra keys and the same metadata JSON as the JAX package's
+(``export_fastpitch_v2``), and the HiFi-GAN generator's fp32
+reference-layout state dict (``export_hifigan_v2``).
 """
 from __future__ import annotations
 
@@ -237,3 +238,14 @@ def export_fastpitch_v2(model: nn.Module, out_path: str, voice_name: str,
     }
     with open(os.path.splitext(out_path)[0] + ".json", "w") as f:
         json.dump(meta, f, indent=4)
+
+
+def export_hifigan_v2(gen: nn.Module, out_path: str) -> None:
+    """The v2 vocoder export ``{voice}.hg.pt`` (reference
+    hifigan/xva_train.py:600-601): ``{"generator": sd}``, ``sd`` the port's
+    ``Generator``'s fp32 state dict in the reference layout (every
+    weight-norm pair re-split over dim 0, the ``ups`` per input channel), as
+    the JAX package's export writes it through ``v2_generator_rules``."""
+    sd = _reference_layout(gen)
+    torch.save({"generator": OrderedDict((k, v.float().contiguous()) for k, v in sd.items())},
+               out_path)

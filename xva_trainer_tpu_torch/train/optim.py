@@ -12,6 +12,9 @@ The GAN optimisers:
   β1 m) + wd·p, then m ← (1-β2) g + β2 m; with the reference's lr/5 and wd×5
   (training_util.py:45-51);
 - the schedule lr·γ^(t // decay_every), t the count of updates made so far;
+  with γ = 1 the learning rate is ``lr`` itself, which the caller may set
+  between steps (the HiFi-GAN trainer's per-epoch decay, optax's
+  ``inject_hyperparams``), and which ``state_dict`` carries;
 - gradient accumulation with ``optax.MultiSteps`` semantics: the running
   mean of ``grad_accum`` micro-steps' gradients, one update of the inner
   optimiser (and one advance of its count) each ``grad_accum`` calls, no
@@ -59,15 +62,19 @@ class GanOptimizer:
     def state_dict(self) -> dict:
         """The optimiser's state (optax's inner state with ``MultiSteps``'):
         the moments ``mu`` and ``nu``, the accumulated gradient ``acc``, the
-        update ``count`` and the micro-step ``mini_step``, as references to
-        the live tensors (``torch.save`` copies them)."""
+        update ``count``, the micro-step ``mini_step`` and the learning rate
+        ``lr``, the tensors as references to the live ones (``torch.save``
+        copies them)."""
         return {"kind": self.kind, "grad_accum": self.grad_accum, "count": self.count,
-                "mini_step": self.mini_step, "mu": self.mu, "nu": self.nu, "acc": self.acc}
+                "mini_step": self.mini_step, "lr": self.lr, "mu": self.mu, "nu": self.nu,
+                "acc": self.acc}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         """Restore ``state_dict()``'s state into this optimiser's tensors
-        (same kind, accumulation and parameter shapes), bit for bit."""
+        (same kind, accumulation and parameter shapes), bit for bit. A state
+        without ``lr`` (a checkpoint written before it was saved) keeps this
+        optimiser's."""
         if (state["kind"], state["grad_accum"]) != (self.kind, self.grad_accum):
             raise ValueError(f"a {state['kind']} state with grad_accum {state['grad_accum']} "
                              f"for a {self.kind} optimiser with grad_accum {self.grad_accum}")
@@ -80,6 +87,7 @@ class GanOptimizer:
             for a, b in zip(ours, theirs):
                 a.copy_(b)
         self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+        self.lr = float(state.get("lr", self.lr))
 
     def learning_rate(self, count: Optional[int] = None) -> float:
         """lr·γ^(count // decay_every) at update ``count`` (default: the next)."""
