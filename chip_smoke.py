@@ -7,8 +7,8 @@ each kernel against its plain PyTorch version at the main paths' shapes,
 then drives the v3 serving path, the v3 data path, the v3 trainer loop, the
 v3 fine-tune with priors in other languages, the v2 FastPitch fine-tune
 with its preview and v2 inference, the v2 HiFi-GAN stage and the v2
-pipeline to both exports, and the v3 training step through the entry
-points a user calls, at the full width of the shipped "big" xVAPitch, of
+pipeline to both exports, the task server with a v3 and a v2 job, and the
+v3 training step through the entry points a user calls, at the full width of the shipped "big" xVAPitch, of
 ``FastPitchConfig()`` and of ``HifiganConfig()`` with
 ``HifiganDiscriminator()`` (weights from a seed). Phases, one JSON line
 each:
@@ -121,14 +121,25 @@ each:
    two FastPitch epochs, the export, two HiFi-GAN epochs at B = 16, the
    ``.hg.pt`` export), a bit-identical resume and one more epoch, three v2
    requests on the two exports, and a profiled pass (``hifigan_phase``).
-   ``cache_build_shapes`` (phase 15) also times the v2 build's slots.
+   ``cache_build_shapes`` (phase 15) also times the v2 build's slots;
+19. ``server`` (after phase 18, on the ``data`` phase's clips and phase 18's
+   copy of the v2 dataset): the port's task server (``AppServer``,
+   ``serve_with_http``) on two localhost ports, driven over HTTP and its
+   websocket as the UI drives it: a full-width v3 fine-tune through every
+   stage with a warm start, a v2 job queued behind it, pause and resume,
+   ``stop`` of the v2 job after its first HiFi-GAN epoch, the v3 job resumed
+   to the queue's ``tasks_next``, ``/exportWav`` from the server's restored
+   checkpoint (equal to ``synthesize_v3`` on the trainer's model) and from
+   the exported ``.pt``, ``/exportVoice``, ``/resourceUsage``, a profiled
+   request and ``/stopServer`` (``server_phase``).
 
 Phases 4-6 are the serving path, phase 13's path the data path, phase 14's
 seeding pass and four updates the loop path, phase 16's path from
 ``preprocess_audio`` to the French request the multilingual path, phase
 17's path from the cache build to the last v2 request the fastpitch path,
 phase 18's from ``train_v2_pipeline`` to its last v2 request the hifigan
-path, and phase 12's timed steps the training path: the launch counts are set to
+path, phase 19's from its first ``startTraining`` to ``/stopServer`` the
+server path, and phase 12's timed steps the training path: the launch counts are set to
 0 just before each and read just after it. Every comparison runs with TF32 off.
 Then come the line of kernels, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
@@ -136,16 +147,22 @@ lines. Needs one CUDA device; imports no JAX.
 """
 from __future__ import annotations
 
+import base64
 import functools
 import gzip
+import hashlib
 import json
 import math
 import os
+import queue
 import re
 import shutil
+import socket
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -174,6 +191,115 @@ def emit(phase: str, **kw) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
+
+
+class WsClient:
+    """A small RFC 6455 client on a stdlib socket: the opening handshake
+    (its ``Sec-WebSocket-Accept`` checked), masked text frames out, frames
+    in (a ping answered with a pong). ``start_reader`` moves the receiving
+    to a thread that puts ``(time, text)`` on ``events``."""
+
+    GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
+
+    def __init__(self, port: int, host: str = "localhost", timeout: float = 60.0):
+        self.sock = socket.create_connection((host, port), timeout=timeout)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((f"GET / HTTP/1.1\r\nHost: {host}:{port}\r\nUpgrade: websocket\r\n"
+                           "Connection: Upgrade\r\nSec-WebSocket-Version: 13\r\n"
+                           f"Sec-WebSocket-Key: {key}\r\n\r\n").encode())
+        head = b""
+        while b"\r\n\r\n" not in head:
+            chunk = self.sock.recv(1)
+            if not chunk:
+                raise ConnectionError("websocket handshake: connection closed")
+            head += chunk
+        lines = head.decode("latin-1").split("\r\n")
+        want = base64.b64encode(hashlib.sha1((key + self.GUID).encode()).digest()).decode()
+        accept = [ln.split(":", 1)[1].strip() for ln in lines
+                  if ln.lower().startswith("sec-websocket-accept:")]
+        if not lines[0].startswith("HTTP/1.1 101") or accept != [want]:
+            raise ConnectionError(f"websocket handshake refused: {lines}")
+        self.events: "queue.Queue" = queue.Queue()
+        self._reader = None
+        self._send_lock = threading.Lock()
+
+    def _read(self, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("websocket: connection closed")
+            buf += chunk
+        return buf
+
+    def send_frame(self, opcode: int, payload: bytes, masked: bool = True, fin: bool = True):
+        n = len(payload)
+        head = bytes([(0x80 if fin else 0) | opcode])
+        bit = 0x80 if masked else 0
+        if n < 126:
+            head += bytes([bit | n])
+        elif n < 2 ** 16:
+            head += bytes([bit | 126]) + struct.pack("!H", n)
+        else:
+            head += bytes([bit | 127]) + struct.pack("!Q", n)
+        if masked:
+            mask = os.urandom(4)
+            key = (mask * (n // 4 + 1))[:n]
+            payload = mask + (int.from_bytes(payload, "big") ^ int.from_bytes(key, "big")
+                              ).to_bytes(n, "big") if n else mask
+        with self._send_lock:
+            self.sock.sendall(head + payload)
+
+    def send(self, text: str) -> None:
+        self.send_frame(0x1, text.encode("utf-8"))
+
+    def send_json(self, **msg) -> None:
+        self.send(json.dumps(msg))
+
+    def recv_frame(self):
+        """(opcode, payload) of the next frame; the server's are unmasked."""
+        b0, b1 = self._read(2)
+        n = b1 & 0x7F
+        if n == 126:
+            (n,) = struct.unpack("!H", self._read(2))
+        elif n == 127:
+            (n,) = struct.unpack("!Q", self._read(8))
+        if b1 & 0x80:
+            raise ConnectionError("websocket: the server masked a frame")
+        return b0 & 0x0F, self._read(n)
+
+    def recv(self) -> str:
+        """The next text message (a ping is answered; a close raises)."""
+        while True:
+            op, payload = self.recv_frame()
+            if op == 0x9:
+                self.send_frame(0xA, payload)
+            elif op == 0x8:
+                raise ConnectionError(f"websocket closed by the server: {payload[:2].hex()}")
+            elif op == 0x1:
+                return payload.decode("utf-8")
+
+    def start_reader(self) -> None:
+        def run():
+            try:
+                while True:
+                    msg = self.recv()
+                    self.events.put((time.perf_counter(), msg))
+            except (ConnectionError, OSError):
+                pass
+
+        self.sock.settimeout(None)
+        self._reader = threading.Thread(target=run, daemon=True)
+        self._reader.start()
+
+    def close(self) -> None:
+        try:
+            self.send_frame(0x8, struct.pack("!H", 1000))
+        except OSError:
+            pass
+        self.sock.close()
+        if self._reader is not None:
+            self._reader.join(timeout=10)
 
 
 def gpu_line() -> str:
@@ -2922,6 +3048,452 @@ def hifigan_phase(dev, smi: str, work: str, ds: str, gen_cfg=None, fp_cfg=None,
     return launches, record
 
 
+SERVER_PER_BUCKET = 16    # the v3 job's clips a bucket, of the data phase's 64
+SERVER_BATCH = 16         # the v3 job's batch at the largest bucket
+SERVER_TARGET_BS = 128    # gam = ceil(128 / 16) = 8 micro-steps an update
+SERVER_V2_BATCH = 16      # the v2 job's HiFi-GAN batch
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def http_call(port: int, path: str, body=None, timeout: float = 600.0):
+    """POST ``body`` as JSON to the server: (status, reply, seconds)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("localhost", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=json.dumps(body or {}).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        raw = resp.read()
+        return resp.status, json.loads(raw), time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def server_phase(dev, smi: str, work: str, data_ds: str, base_ckpt: str | None, v2_ds: str,
+                 serve_requests: list, model_config: dict | None = None,
+                 src_per_bucket: int = CLIPS_PER_BUCKET, per_bucket: int = SERVER_PER_BUCKET,
+                 batch: int = SERVER_BATCH, target_bs: int = SERVER_TARGET_BS) -> tuple:
+    """Phase 19, ``server``: the port's task server as the UI drives it.
+
+    ``serve_with_http`` runs on a thread on two free localhost ports; the
+    ``AppServer`` stays in this process, so its trainers can be inspected;
+    everything else goes over real sockets (HTTP with ``http.client``, the
+    websocket with ``WsClient``):
+
+    1. ``/checkReady``, ``/setDevice`` ``cuda`` (``tpu`` refused),
+       ``/datasetInfo`` on the v3 job's dataset: ``per_bucket`` clips a v3
+       bucket copied from the ``data`` phase's dataset ``data_ds``;
+    2. ``startTraining`` of a v3 fine-tune at the full width of
+       ``XVAPitchConfig()`` (``model_config`` and smaller batches only for
+       a rehearsal on the CPU), batch 16, ``target_bs`` 128, ``save_step`` 1,
+       ``max_steps`` 2, warm-started
+       from ``base_ckpt``: preprocess, G2P, speaker embeddings, the cache
+       build, the warm start, the seeding pass, two updates with
+       checkpoints, the export;
+    3. while it trains, a v2 ``startTraining`` (``force_stage`` 5, batch 16,
+       on ``v2_ds``) comes back as a ``task_info`` "queued" event; a
+       ``pause`` holds ``micro_steps`` still for 3 s, then ``resume``;
+    4. the queue moves on to the v2 job; once its HiFi-GAN trainer has
+       finished an epoch, ``stop``: ``/queue`` says not running, the worker
+       thread ends (its seconds after the stop recorded), and no kernel is
+       launched after it;
+    5. ``startTraining`` of the v3 job again with ``max_steps`` 3: it
+       resumes from its checkpoints, takes the third update, exports, and
+       ends the queue with ``tasks_next``;
+    6. ``/exportWav`` on the v3 output directory (the newest checkpoint,
+       restored by the server), equal sample for sample to
+       ``serve.synthesize_v3`` and the loudness normalization on the
+       trainer's model; ``/exportWav`` on the exported ``.pt``, cold then
+       warm for each of ``TEXTS``, beside ``serve.export_wav`` in process on
+       the same file and texts and phase 5's requests (``serve_requests``);
+       ``/exportVoice`` (the ``.pt``/``.json`` pair and its preview);
+    7. ``/resourceUsage`` on ``cuda``; one ``/exportWav`` between
+       ``/profileStart`` and ``/profileStop``, whose trace must hold CUDA
+       kernels; ``/stopServer`` ends the server.
+
+    Returns the path's launch counts (from the first ``startTraining`` to
+    the server's stop) and the record."""
+    import asyncio
+
+    from xva_trainer_tpu_torch.app.server import AppServer, make_logger
+    from xva_trainer_tpu_torch.models.xvapitch import XVAPitchConfig
+    from xva_trainer_tpu_torch.ops import _cuda
+    from xva_trainer_tpu_torch.ops.loudness import normalize_ebu_r128
+    from xva_trainer_tpu_torch.serve import export_wav, save_wav as serve_save, synthesize_v3
+    from xva_trainer_tpu_torch.train import checkpoints as pck
+    from xva_trainer_tpu_torch.train.hifigan_trainer import HifiganTrainer
+    from xva_trainer_tpu_torch.train.xvapitch_trainer import XVAPitchTrainer
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    root = os.path.join(work, "server")
+    v3ds = os.path.join(root, "server_voice")
+    os.makedirs(os.path.join(v3ds, "wavs"))
+    with open(os.path.join(data_ds, "metadata.csv"), encoding="utf-8") as f:
+        rows = [ln for ln in f.read().splitlines() if ln.strip()]
+    rows = [r for i, r in enumerate(rows) if i % src_per_bucket < per_bucket]
+    for r in rows:
+        name = r.split("|")[0]
+        shutil.copyfile(os.path.join(data_ds, "wavs", name), os.path.join(v3ds, "wavs", name))
+    with open(os.path.join(v3ds, "metadata.csv"), "w", encoding="utf-8") as f:
+        f.write("".join(r + "\n" for r in rows))
+    v3out, v2out = os.path.join(root, "v3_out"), os.path.join(root, "v2_out")
+    wavs = os.path.join(root, "wavs_out")
+    os.makedirs(wavs)
+    v3msg = {"dataset_path": v3ds, "output_path": v3out, "model_type": "xVAPitch",
+             "lang": "en", "batch_size": batch, "target_bs": target_bs,
+             "save_step": 1, "max_steps": 2}
+    if base_ckpt:
+        v3msg["checkpoint"] = base_ckpt
+    if model_config:
+        v3msg.update(model_config=model_config, use_amp=False)
+    v2msg = {"dataset_path": v2_ds, "output_path": v2out, "model_type": "FastPitch1.1",
+             "force_stage": 5, "batch_size": SERVER_V2_BATCH}
+    if not on_card:
+        v2msg["use_amp"] = "false"
+
+    saves: list = []
+    real_save = pck.CheckpointManager.save
+
+    def save(self, step, state, host=None):  # each checkpoint's seconds and bytes
+        path = real_save(self, step, state, host)
+        saves.append(dict(self.last_save, prefix=self.prefix))
+        return path
+
+    http_port = free_port()
+    ws_port = free_port()
+    while ws_port == http_port:
+        ws_port = free_port()
+    old_cwd = os.getcwd()
+    os.chdir(root)  # the server keeps its settings, queue file and log in its working directory
+    pck.CheckpointManager.save = save
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    app = AppServer(http_port, ws_port, logger=make_logger(os.path.join(root, "server.log")),
+                    device=str(dev))
+    srv_errors: list = []
+
+    def serve():
+        try:
+            asyncio.run(app.serve_with_http())
+        except BaseException as e:  # noqa: BLE001 — reported by the phase
+            srv_errors.append(repr(e))
+
+    srv = threading.Thread(target=serve, name="server", daemon=True)
+    client = None
+    events: list = []
+    # each v3 trainer's micro-steps, counted as they start and end (wrapped
+    # as the session attaches the trainer, before its first step)
+    steps = {"started": 0, "in_flight": 0}
+    plain_attach = app.training._attach_trainer
+
+    def attach(tr):
+        if isinstance(tr, XVAPitchTrainer):
+            steps.update(started=0, in_flight=0)
+            for freeze, real in list(tr._steps.items()):
+                def step(batch, gen, real=real):
+                    steps["started"] += 1
+                    steps["in_flight"] += 1
+                    try:
+                        return real(batch, gen)
+                    finally:
+                        steps["in_flight"] -= 1
+                tr._steps[freeze] = step
+        plain_attach(tr)
+
+    app.training._attach_trainer = attach
+    rec: dict = {"ports": [http_port, ws_port], "clips": len(rows), "gpu": smi}
+
+    def http(path, body=None, want=200):
+        status, out, sec = http_call(http_port, path, body)
+        check(status == want, f"server: {path} {body} answered {status}: {str(out)[-2000:]}")
+        return out, sec
+
+    def wait(pred, timeout, what, job=True):
+        end = time.perf_counter() + timeout
+        while not pred():
+            pending = [m for _, m in list(client.events.queue)] if client else []
+            bad = [m for m in pending if '"TRAINING_ERROR"' in m or '"tasks_error"' in m]
+            check(not bad and not srv_errors and (not job or app.training.running()),
+                  f"server: while waiting for {what}: events {[m[-3000:] for m in bad]}, "
+                  f"server {srv_errors}, job running {app.training.running()}")
+            check(time.perf_counter() < end, f"server: {what} took over {timeout} s")
+            time.sleep(0.05)
+
+    def next_event(key, timeout):
+        end = time.perf_counter() + timeout
+        while True:
+            try:
+                t, msg = client.events.get(timeout=max(0.01, end - time.perf_counter()))
+            except queue.Empty:
+                raise AssertionError(f"server: no {key} event in {timeout} s; {events}") from None
+            ev = json.loads(msg)
+            events.append({"key": ev.get("key"), "data": str(ev.get("data"))[-3000:]})
+            check(ev.get("key") not in ("TRAINING_ERROR", "tasks_error"),
+                  f"server: {ev.get('key')} event: {str(ev.get('data'))[-3000:]}")
+            if ev.get("key") == key:
+                return t, ev
+
+    try:
+        t0 = time.perf_counter()
+        srv.start()
+
+        def up():
+            try:
+                return http_call(http_port, "/checkReady", timeout=5)[1] == {"ready": True}
+            except OSError:
+                return False
+
+        wait(up, 60, "the server to answer", job=False)
+        rec["start_seconds"] = time.perf_counter() - t0
+        http("/setDevice", {"device": str(dev)})
+        refused, _ = http("/setDevice", {"device": "tpu"}, want=500)
+        check("tpu" in refused.get("error", "") and app.manager.device == str(dev),
+              f"server: /setDevice tpu was not refused: {refused}, device {app.manager.device}")
+        info, _ = http("/datasetInfo", {"path": v3ds})
+        check(len(info["items"]) == len(rows) and all(i["exists"] for i in info["items"])
+              and not info["duplicates"] and not info["untranscribed"],
+              f"server: /datasetInfo {str(info)[:2000]}")
+        client = WsClient(ws_port)
+        client.start_reader()
+
+        # ---- the server path: the counts are set to 0 just before it ----
+        _cuda.reset_launch_counts()
+        t_start = time.perf_counter()
+        client.send_json(model="xvapitch", task="startTraining", data=v3msg)
+        wait(app.training.running, 60, "the v3 job to start", job=False)
+        wait(lambda: isinstance(app.training.trainer, XVAPitchTrainer)
+             and app.training.trainer.micro_steps >= 1, 900, "the v3 job's first micro-step")
+        v3 = app.training.trainer
+        rec["v3_first_micro_step_s"] = time.perf_counter() - t_start
+        n_params = (sum(p.numel() for p in v3.model.parameters()),
+                    sum(p.numel() for p in v3.disc.parameters()))
+        check(v3.device == dev and (model_config or n_params == FULL_PARAMS),
+              f"server: the v3 trainer on {v3.device} with {n_params} parameters")
+        # a start while training queues the item
+        t_q = time.perf_counter()
+        client.send_json(model="fastpitch1_1", task="startTraining", data=v2msg)
+        t_info, ev = next_event("task_info", 60)
+        check(ev["data"] == f"queued (2 total): {v2_ds}", f"server: the queue event {ev}")
+        rec["task_info_latency_ms"] = (t_info - t_q) * 1e3
+        # a warm pause holds the trainer still, then resume
+        client.send_json(model="", task="pause", data={})
+        wait(lambda: v3.paused, 30, "the pause")
+        t_pause = time.perf_counter()
+        # the micro-step in flight at the pause ends (and its update's
+        # checkpoint, if any); then no micro-step starts
+        wait(lambda: steps["in_flight"] == 0 and v3.micro_steps == steps["started"], 120,
+             "the micro-step in flight at the pause")
+        time.sleep(0.5)
+        settle_s, s0 = time.perf_counter() - t_pause, steps["started"]
+        m0 = v3.micro_steps
+        time.sleep(3.0)
+        m1 = v3.micro_steps
+        q, _ = http("/queue")
+        check(m0 == m1 and steps["started"] == s0 and q["paused"] and q["running"]
+              and len(q["queue"]) == 2,
+              f"server: paused at {m0} micro-steps, then {m1} ({steps}); /queue {q}")
+        rec["pause"] = {"micro_steps": m0, "after_3_s": m1, "updates": v3.training_iters,
+                        "settle_s": settle_s}
+        client.send_json(model="", task="resume", data={})
+        wait(lambda: not v3.paused, 30, "the resume")
+        wait(lambda: app.training.queue_index >= 1, 1800, "the end of the v3 job")
+        t_v3_end = time.perf_counter()
+        v3_stages = list(app.training.stage_seconds)
+        files = sorted(os.listdir(v3out))
+        meta = json.load(open(os.path.join(v3out, "server_voice.json"), encoding="utf-8"))
+        check(v3.training_iters == 2 and v3.micro_steps == 2 * v3.gam
+              and [f for f in files if f.startswith("xVAPitch_")] == [
+                  "xVAPitch_1.json", "xVAPitch_1.pt", "xVAPitch_2.json", "xVAPitch_2.pt"]
+              and {"model_config.json", "graphs.json", "server_voice.pt"} <= set(files)
+              and meta["modelType"] == "xVAPitch"
+              and len(meta["games"][0]["base_speaker_emb"]) == 512
+              and len(os.listdir(os.path.join(v3ds, "se_embs"))) == len(rows)
+              and os.path.isdir(os.path.join(v3ds, "wavs_postprocessed")),
+              f"server: the v3 job left {v3.training_iters} updates, {v3.micro_steps} "
+              f"micro-steps (gam {v3.gam}), files {files}")
+        rec["v3_job"] = {"seconds": t_v3_end - t_start, "stages": v3_stages,
+                         "seed_seconds": v3.seed_seconds, "gam": v3.gam,
+                         "micro_steps": v3.micro_steps, "frames_s": list(v3.meter.history),
+                         "batches_an_epoch": len(v3.batcher)}
+
+        # ---- the queue's v2 job: stop after its first HiFi-GAN epoch ----
+        # its first epoch and that epoch's checkpoint done, the second under way
+        wait(lambda: isinstance(app.training.trainer, HifiganTrainer)
+             and app.training.trainer.epoch >= 1
+             and app.training.trainer.total_iter > len(app.training.trainer.sampler), 900,
+             "the v2 job's second HiFi-GAN epoch")
+        hifi = app.training.trainer
+        t_stop = time.perf_counter()
+        epoch_at_stop, iters_at_stop = hifi.epoch, hifi.total_iter
+        client.send_json(model="", task="stop", data={})
+        wait(lambda: not http_call(http_port, "/queue")[1]["running"], 60,
+             "/queue to say not running", job=False)
+        t_not_running = time.perf_counter()
+        check(app.training.workers_idle(timeout=600), "server: the v2 worker thread ran on")
+        t_idle = time.perf_counter()
+        after = dict(_cuda.LAUNCHES)
+        time.sleep(2.0)
+        check(dict(_cuda.LAUNCHES) == after,
+              f"server: kernels launched after the worker ended: {after} → {_cuda.LAUNCHES}")
+        v2_files = sorted(os.listdir(v2out)) + sorted("hifi/" + f for f in
+                                                      os.listdir(os.path.join(v2out, "hifi")))
+        rec["v2_job"] = {"seconds_to_first_epoch": t_stop - t_v3_end,
+                         "stages": app.training.stage_seconds[len(v3_stages):],
+                         "epoch_at_stop": epoch_at_stop, "iters_at_stop": iters_at_stop,
+                         "epoch_after": hifi.epoch, "iters_after": hifi.total_iter,
+                         "steps_an_epoch": len(hifi.sampler), "frames_s": list(hifi.meter.history),
+                         "files": v2_files}
+        rec["stop"] = {"queue_not_running_s": t_not_running - t_stop,
+                       "worker_ended_s": t_idle - t_stop,
+                       "the_thread_ran_on": hifi.total_iter > iters_at_stop or hifi.epoch > epoch_at_stop
+                       or any(f.endswith(".hg.pt") for f in os.listdir(v2out))}
+        del hifi
+
+        # ---- the v3 job again: it resumes, updates once more and ends the queue ----
+        n_stages = len(app.training.stage_seconds)
+        t_resume = time.perf_counter()
+        client.send_json(model="xvapitch", task="startTraining", data=dict(v3msg, max_steps=3))
+        t_next, _ = next_event("tasks_next", 1800)
+        v3b = app.training.trainer
+        files = sorted(f for f in os.listdir(v3out) if f.startswith("xVAPitch_") and f.endswith(".pt"))
+        check(isinstance(v3b, XVAPitchTrainer) and v3b is not v3 and v3b.training_iters == 3
+              and files == ["xVAPitch_2.pt", "xVAPitch_3.pt"] and not app.training.running(),
+              f"server: the resumed v3 job at {getattr(v3b, 'training_iters', None)} updates, "
+              f"files {files}")
+        rec["v3_resumed_job"] = {"seconds_to_tasks_next": t_next - t_resume,
+                                 "stages": app.training.stage_seconds[n_stages:],
+                                 "frames_s": list(v3b.meter.history)}
+        rec["checkpoints"] = saves
+        del v3
+        t_stop_all = time.perf_counter()
+
+        # ---- synthesis through the server ----
+        emb = np.loadtxt(os.path.join(v3ds, "emb.txt"), delimiter=",").astype(np.float32)
+        exports = {}
+        for tag in ("cold", "warm"):
+            body = {"xvap_ckpt": v3out, "out_path": os.path.join(wavs, f"dir_{tag}.wav"),
+                    "text": TEXTS[0], "emb": emb.tolist(), "lang": "en"}
+            out, sec = http("/exportWav", body)
+            exports[f"dir_{tag}_s"] = sec
+        v3b.model.eval()
+        want = os.path.join(wavs, "dir_in_process.wav")
+        serve_save(want, normalize_ebu_r128(synthesize_v3(v3b.model, TEXTS[0], emb, "en"), SR))
+        _, a = wavfile.read(os.path.join(wavs, "dir_warm.wav"))
+        _, b = wavfile.read(want)
+        _, c = wavfile.read(os.path.join(wavs, "dir_cold.wav"))
+        check(len(a) > 0 and len(a) % HOP == 0 and np.array_equal(a, b) and np.array_equal(a, c),
+              f"server: /exportWav on the output directory ({len(a)} samples) differs from "
+              f"synthesize_v3 on the trainer's model ({len(b)}): "
+              f"{int(np.abs(a[:len(b)].astype(np.int64) - b[:len(a)]).max()) if len(a) and len(b) else None}")
+        exports["dir_samples"] = int(len(a))
+        del v3b
+        pt = os.path.join(v3out, "server_voice.pt")
+        pt_cfg = XVAPitchConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                   for k, v in (model_config or {}).items()})
+        http_pt, local_pt = [], []
+        out, sec = http("/exportWav", {"xvap_ckpt": pt, "out_path": os.path.join(wavs, "pt_cold.wav"),
+                                       "text": "Warm up."})
+        exports["pt_cold_s"] = sec
+        # each text over HTTP and in process, in turns, three rounds
+        for r in range(3):
+            for i, text in enumerate(TEXTS):
+                body = {"xvap_ckpt": pt, "text": text, "lang": "en"}
+                out, sec = http("/exportWav", dict(body, out_path=os.path.join(wavs, f"pt_{i}.wav")))
+                sr_, pcm = wavfile.read(out["path"])
+                check(sr_ == SR and len(pcm) > 0 and len(pcm) % HOP == 0 and np.abs(pcm).max() > 0,
+                      f"server: /exportWav on the .pt wrote {len(pcm)} samples")
+                http_pt.append({"text": i, "seconds": sec, "samples": int(len(pcm))})
+                local = os.path.join(wavs, f"local_{i}.wav")
+                t0 = time.perf_counter()
+                export_wav(dict(body, out_path=local), cfg=pt_cfg, device=str(dev))
+                sync()
+                local_pt.append(time.perf_counter() - t0)
+                check(open(out["path"], "rb").read() == open(local, "rb").read(),
+                      f"server: /exportWav and export_wav differ on request {i}")
+        adds = [(h["seconds"] - s) * 1e3 for h, s in zip(http_pt, local_pt)]
+        exports.update(pt_warm=http_pt, in_process_s=local_pt, server_adds_ms=adds,
+                       server_adds_ms_median=float(np.median(adds)),
+                       phase5_in_process_s=[r["seconds"] for r in serve_requests])
+        voice, sec = http("/exportVoice", {"dataset_path": v3ds, "training_dir": v3out,
+                                           "out_dir": os.path.join(root, "voice_export")})
+        vmeta = json.load(open(voice["json"], encoding="utf-8")) if voice.get("ok") else {}
+        check(voice.get("ok") and os.path.getsize(voice["pt"]) == os.path.getsize(pt)
+              and vmeta.get("modelType") == "xVAPitch" and "preview" in voice
+              and os.path.getsize(voice["preview"]) > 44,
+              f"server: /exportVoice {voice}")
+        exports["export_voice_s"] = sec
+        rec["exports"] = exports
+
+        # ---- telemetry and the profiler ----
+        usage, _ = http("/resourceUsage")
+        check(usage["device"]["platform"] == ("cuda" if on_card else "uninitialized")
+              and (usage["device"]["used_gb"] > 0 or not on_card),
+              f"server: /resourceUsage {usage}")
+        rec["resource_usage"] = usage
+        trace_dir = os.path.join(root, "trace")
+        started, _ = http("/profileStart", {"dir": trace_dir})
+        _, sec = http("/exportWav", {"xvap_ckpt": pt, "text": TEXTS[1],
+                                     "out_path": os.path.join(wavs, "profiled.wav")})
+        stopped, _ = http("/profileStop")
+        traces = [os.path.join(d, f) for d, _, fs in os.walk(trace_dir) for f in fs
+                  if f.endswith(".json")]
+        kinds: dict = {}
+        for p in traces:
+            with open(p, encoding="utf-8") as f:
+                for e in json.load(f).get("traceEvents", []):
+                    kinds[e.get("cat")] = kinds.get(e.get("cat"), 0) + 1
+        check(started["ok"] and stopped["ok"] and traces and kinds.get("cpu_op", 0) > 0
+              and (kinds.get("kernel", 0) > 0 or not on_card),
+              f"server: the profiler {started} {stopped}, traces {traces}, events {kinds}")
+        rec["profiler"] = {"request_s": sec, "traces": len(traces), "events": kinds}
+
+        # ---- /stopServer ----
+        stop_reply, _ = http("/stopServer")
+        srv.join(timeout=60)
+        check(stop_reply == {"ok": True} and not srv.is_alive() and not srv_errors,
+              f"server: /stopServer {stop_reply}, thread alive {srv.is_alive()}, {srv_errors}")
+        launches = dict(_cuda.LAUNCHES)  # the end of the server path
+        try:
+            http_call(http_port, "/checkReady", timeout=5)
+            still_up = True
+        except OSError:
+            still_up = False
+        check(not still_up, "server: HTTP still answers after /stopServer")
+        rec.update(events=events, launches=launches, path_seconds=t_stop_all - t_start,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None)
+        return launches, rec
+    finally:
+        pck.CheckpointManager.save = real_save
+        os.chdir(old_cwd)
+        if srv.is_alive():  # a failed check: end the job and the server
+            if client is not None:
+                try:
+                    client.send_json(model="", task="stop", data={})
+                except OSError:
+                    pass
+            end = time.perf_counter() + 600
+            while time.perf_counter() < end:  # a trainer that attaches after the stop too
+                tr = app.training.trainer
+                if tr is not None:
+                    tr.paused, tr.stop_requested = False, True
+                if app.training.workers_idle(timeout=1.0):
+                    break
+            try:
+                http_call(http_port, "/stopServer", timeout=30)
+            except OSError:
+                pass
+        if client is not None:
+            client.close()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3316,6 +3888,11 @@ def main() -> int:
         hg_launches, hg_record = hifigan_phase(dev, smi, data_work,
                                                os.path.join(data_work, "v2_voice"))
         emit("hifigan", **hg_record)
+        # the task server, on the data phase's clips and the hifigan phase's
+        # copy of the v2 dataset (its v2 cache built)
+        srv_launches, srv_record = server_phase(dev, smi, data_work, data_ctx["dataset"], ckpt,
+                                                os.path.join(data_work, "pipe_voice"), requests)
+        emit("server", **srv_record)
         # the least time for the v2 build's launches (mel only): each group's
         # bound, summed
         fp_build = fp_record["cache_build"]
@@ -3375,7 +3952,7 @@ def main() -> int:
     train_launches, train = train_phases(cfg_m, dev)
     by_path = {"serve": launches, "data": data_launches, "loop": loop_launches,
                "multilingual": ml_launches, "fastpitch": fp_launches, "hifigan": hg_launches,
-               "train": train_launches}
+               "server": srv_launches, "train": train_launches}
 
     kernels = [{
         "name": "fused_stft", "route": "cuda",
@@ -3436,6 +4013,7 @@ def main() -> int:
                                          ("multilingual", ["fused_stft", "mas"]),
                                          ("fastpitch", ["fused_stft", "mas"]),
                                          ("hifigan", ["fused_stft"]),
+                                         ("server", ["fused_stft", "mas"]),
                                          ("train", ["fused_stft", "mas"]))
                for k in ks if by_path[p][k] < 1]
     check(not missing, f"a main path launched no {missing}")

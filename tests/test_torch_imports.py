@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: it imports torch, numpy and scipy, and
-never JAX, anything of the JAX package ``xva_trainer_tpu``, or scikit-learn
-(which the card's machine does not have)."""
+never JAX, anything of the JAX package ``xva_trainer_tpu``, scikit-learn or
+``websockets`` (neither of which the card's machine has; the task server's
+websocket is the stdlib ``app/ws.py``)."""
 import ast
 import json
 import os
@@ -13,7 +14,8 @@ import pytest
 import xva_trainer_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "xva_trainer_tpu", "sklearn")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "xva_trainer_tpu", "sklearn",
+             "websockets")
 SOURCES = ["chip_smoke.py"] + sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, files in os.walk(os.path.join(REPO, "xva_trainer_tpu_torch"))
@@ -28,14 +30,15 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     """Import every module of the port, and chip_smoke, in a fresh
-    interpreter: no JAX module, no module of the JAX package and no
-    scikit-learn is loaded."""
+    interpreter: no JAX module, no module of the JAX package, no
+    scikit-learn and no ``websockets`` is loaded."""
     mods = _port_modules() + ["chip_smoke"]
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.startswith(('jax', 'flax', 'optax', "
-        "'orbax', 'sklearn')) or k == 'xva_trainer_tpu' or k.startswith('xva_trainer_tpu.'))\n"
+        "'orbax', 'sklearn', 'websockets')) or k == 'xva_trainer_tpu' "
+        "or k.startswith('xva_trainer_tpu.'))\n"
         "print(json.dumps(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -43,6 +46,9 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert len(mods) > 20
+    for m in ("app.server", "app.manager", "app.ws", "utils.config", "utils.telemetry",
+              "train.profiler", "tools", "cli", "demo"):
+        assert "xva_trainer_tpu_torch." + m in mods
 
 
 @pytest.mark.parametrize("path", SOURCES)

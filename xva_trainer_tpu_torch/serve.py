@@ -5,8 +5,7 @@ Counterpart of ``xva_trainer_tpu/app/server.py::_export_wav`` and
 ``_synthesize_v3`` for ``.pt`` checkpoints: text → ``v3_text_to_ids`` →
 tokens padded to 128 → ``XVAPitch.infer`` at ``max_frames=512`` → the wav cut
 to ``y_lengths * hop`` → EBU R128 loudness normalization → 16-bit wav. The
-orbax checkpoint directories of the JAX trainer, and the websocket/HTTP
-server around this, are not ported yet.
+task server (``app/server.py``) builds its ``/exportWav`` on these.
 
 The noise that ``infer`` and ``voice_conversion`` consume is drawn from a CPU
 ``torch.Generator`` seeded with ``NOISE_SEED`` (the JAX server's
@@ -73,6 +72,14 @@ def _cached_model(path: str, mtime_ns: int, cfg: XVAPitchConfig, device: str) ->
     return load_xvapitch(path, cfg, device)
 
 
+def cached_xvapitch(path: str, cfg: XVAPitchConfig = XVAPitchConfig(),
+                    device="cuda") -> XVAPitch:
+    """``load_xvapitch``, kept loaded for the next call while the file is
+    unchanged."""
+    dev = resolve_device(device)
+    return _cached_model(os.path.abspath(path), os.stat(path).st_mtime_ns, cfg, str(dev))
+
+
 def resolve_voice_emb(ckpt_path: str) -> Optional[np.ndarray]:
     """The voice's speaker embedding when a request sends none: the exported
     voice's metadata JSON (``games[0].base_speaker_emb``) or an ``emb.txt``
@@ -130,7 +137,7 @@ def export_wav(body: Dict, *, cfg: XVAPitchConfig = XVAPitchConfig(),
     emb = body.get("emb")
     if emb is None:
         emb = resolve_voice_emb(ckpt)
-    model = _cached_model(os.path.abspath(ckpt), os.stat(ckpt).st_mtime_ns, cfg, str(dev))
+    model = cached_xvapitch(ckpt, cfg, dev)
     wav = synthesize_v3(model, body.get("text", DEFAULT_TEXT), emb, body.get("lang", "en"))
     save_wav(body["out_path"], normalize_ebu_r128(wav, SAMPLE_RATE))
     return {"ok": True, "path": body["out_path"]}
