@@ -7,9 +7,10 @@ each kernel against its plain PyTorch version at the main paths' shapes,
 then drives the v3 serving path, the v3 data path, the v3 trainer loop, the
 v3 fine-tune with priors in other languages, the v2 FastPitch fine-tune
 with its preview and v2 inference, the v2 HiFi-GAN stage and the v2
-pipeline to both exports, the task server with a v3 and a v2 job, and the
-v3 training step through the entry points a user calls, at the full width of the shipped "big" xVAPitch, of
-``FastPitchConfig()`` and of ``HifiganConfig()`` with
+pipeline to both exports, the task server with a v3 and a v2 job, the 13
+dataset tools over the server's websocket, and the v3 training step
+through the entry points a user calls, at the full width of the shipped
+"big" xVAPitch, of the speaker encoder, of ``FastPitchConfig()`` and of ``HifiganConfig()`` with
 ``HifiganDiscriminator()`` (weights from a seed). Phases, one JSON line
 each:
 
@@ -131,7 +132,21 @@ each:
    to the queue's ``tasks_next``, ``/exportWav`` from the server's restored
    checkpoint (equal to ``synthesize_v3`` on the trainer's model) and from
    the exported ``.pt``, ``/exportVoice``, ``/resourceUsage``, a profiled
-   request and ``/stopServer`` (``server_phase``).
+   request and ``/stopServer`` (``server_phase``);
+20. ``tools`` (after phase 19, on the ``data`` phase's clips): the 13
+   dataset tools of the port, each a ``runTask`` over the server's
+   websocket as the UI's tools panel sends it, with the server on the card:
+   the eight audio tools on the 256 clips (64 as 44.1 kHz stereo wavs, 32
+   as FLAC), a 10-minute recording with its ``.srt`` and 16 PCM ``.wem``
+   (and Vorbis ones where libvorbisenc is present); ``cluster_speakers``
+   (k-means and affinity propagation), ``speaker_search``,
+   ``speaker_cluster_search`` and ``diarization`` of two 3-minute
+   recordings (3 and 5 speakers, auto-k) and the DER harness's own two,
+   with the server's speaker encoder
+   on the card; ``wer_evaluation``; a recording uploaded with noise removal
+   on; then a profiled ``speaker_search``; held to the CPU (embeddings,
+   partitions, the search order, diarization turns) and to the DER
+   harness's bars (``tools_phase``).
 
 Phases 4-6 are the serving path, phase 13's path the data path, phase 14's
 seeding pass and four updates the loop path, phase 16's path from
@@ -139,8 +154,11 @@ seeding pass and four updates the loop path, phase 16's path from
 17's path from the cache build to the last v2 request the fastpitch path,
 phase 18's from ``train_v2_pipeline`` to its last v2 request the hifigan
 path, phase 19's from its first ``startTraining`` to ``/stopServer`` the
-server path, and phase 12's timed steps the training path: the launch counts are set to
-0 just before each and read just after it. Every comparison runs with TF32 off.
+server path, phase 20's from its first ``runTask`` to the uploaded
+recording the tools path (which launches neither kernel: no tool computes
+an STFT mel or an alignment), and phase 12's timed steps the training
+path: the launch counts are set to 0 just before each and read just after
+it. Every comparison runs with TF32 off.
 Then come the line of kernels, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
 lines. Needs one CUDA device; imports no JAX.
@@ -3443,17 +3461,12 @@ def server_phase(dev, smi: str, work: str, data_ds: str, base_ckpt: str | None, 
         _, sec = http("/exportWav", {"xvap_ckpt": pt, "text": TEXTS[1],
                                      "out_path": os.path.join(wavs, "profiled.wav")})
         stopped, _ = http("/profileStop")
-        traces = [os.path.join(d, f) for d, _, fs in os.walk(trace_dir) for f in fs
-                  if f.endswith(".json")]
-        kinds: dict = {}
-        for p in traces:
-            with open(p, encoding="utf-8") as f:
-                for e in json.load(f).get("traceEvents", []):
-                    kinds[e.get("cat")] = kinds.get(e.get("cat"), 0) + 1
-        check(started["ok"] and stopped["ok"] and traces and kinds.get("cpu_op", 0) > 0
+        trace = trace_busy(trace_dir)
+        kinds = trace["events"]
+        check(started["ok"] and stopped["ok"] and trace["traces"] and kinds.get("cpu_op", 0) > 0
               and (kinds.get("kernel", 0) > 0 or not on_card),
-              f"server: the profiler {started} {stopped}, traces {traces}, events {kinds}")
-        rec["profiler"] = {"request_s": sec, "traces": len(traces), "events": kinds}
+              f"server: the profiler {started} {stopped}, {trace['traces']} traces, events {kinds}")
+        rec["profiler"] = {"request_s": sec, "traces": trace["traces"], "events": kinds}
 
         # ---- /stopServer ----
         stop_reply, _ = http("/stopServer")
@@ -3492,6 +3505,713 @@ def server_phase(dev, smi: str, work: str, data_ds: str, base_ckpt: str | None, 
                 pass
         if client is not None:
             client.close()
+
+
+TOOLS_WAV44 = 64      # of the data cell's clips, rewritten as 44.1 kHz stereo wavs
+TOOLS_FLAC = 32       # and as 22.05 kHz stereo FLAC
+TOOLS_SRT_S = 600.0   # the srt_split recording
+TOOLS_WEM = 16        # PCM .wem files (and 4 Vorbis ones where libvorbisenc is present)
+TOOLS_DIAR_S = 180.0  # each diarization recording
+TOOLS_CHECK = 16      # clips embedded on the card and on the CPU
+# the DER harness's 3- and 5-speaker specs (tests/test_diarization_der.py
+# THREE, and FOUR with 3 turns more), each recording: its spec, its length
+# (0: the spec once), build_conversation's keywords, its DER bar (None:
+# reported), the speakers it must find, and whether the CPU diarizes it too
+# (for the DER between the card's turns and the CPU's). The "harness"
+# recordings are the harness's own cases with its bars; the 3-minute ones
+# repeat a spec. With a random-init encoder the 5-speaker spec repeated
+# past one pass goes over the bar at most lengths, in the JAX package as in
+# the port (its close pair, f0 112 and 95 Hz, merges), and the auto-k there
+# turns on the last bits of the embeddings (scripts/der_by_length.py;
+# PERF.md §6): that recording's DER is reported, its speakers held.
+THREE = [(0, 3.0), (1, 2.5), (0, 2.0), (2, 3.5), (1, 3.0), (2, 2.0), (0, 2.5)]
+FIVE = [(0, 3.0), (1, 2.5), (2, 3.0), (3, 2.5), (0, 2.0), (2, 2.5), (1, 3.0), (3, 2.0),
+        (4, 3.0), (0, 2.0), (4, 2.5)]
+DIAR_CASES = {
+    "three": dict(spec=THREE, seconds=TOOLS_DIAR_S, kw={"seed": 7}, bar=0.25, speakers=(3, 3),
+                  on_cpu=False),
+    "five": dict(spec=FIVE, seconds=TOOLS_DIAR_S, kw={"seed": 9}, bar=None, speakers=(4, 5),
+                 on_cpu=True),
+    "three_harness": dict(spec=THREE, seconds=0, kw={"seed": 7, "rt60": 0.3, "snr_db": 15.0},
+                          bar=0.25, speakers=(3, 3), on_cpu=True),
+    "five_harness": dict(spec=FIVE, seconds=0, kw={"seed": 9}, bar=0.30, speakers=(4, 5),
+                         on_cpu=True),
+}
+
+
+def _crc_table(poly: int, width: int) -> list:
+    top, mask = 1 << (width - 1), (1 << width) - 1
+    table = []
+    for b in range(256):
+        c = b << (width - 8)
+        for _ in range(8):
+            c = ((c << 1) ^ poly) & mask if c & top else (c << 1) & mask
+        table.append(c)
+    return table
+
+
+FLAC_CRC8, FLAC_CRC16 = _crc_table(0x07, 8), _crc_table(0x8005, 16)
+
+
+def flac_verbatim(pcm: np.ndarray, sr: int, block: int = 4096) -> bytes:
+    """A FLAC stream of int16 ``pcm`` ((n,) or (n, channels)): STREAMINFO,
+    then one frame a block of VERBATIM subframes (byte aligned at 16 bits,
+    so numpy writes the samples), with real CRC-8 and CRC-16 sums. The
+    pure-Python ``tests/flac_encoder.py`` writes such streams a bit at a
+    time, too slow for a dataset."""
+    pcm = pcm.reshape(len(pcm), -1).astype(">i2")
+    n, ch = pcm.shape
+    info = (struct.pack(">HH", block, block) + bytes(6)
+            + ((sr << 44) | ((ch - 1) << 41) | (15 << 36) | n).to_bytes(8, "big") + bytes(16))
+    out = bytearray(b"fLaC" + bytes([0x80]) + len(info).to_bytes(3, "big") + info)
+    for fi, s in enumerate(range(0, n, block)):
+        blk = pcm[s: s + block]
+        if fi < 0x80:  # the frame number, UTF-8 coded
+            num = bytes([fi])
+        elif fi < 0x800:
+            num = bytes([0xC0 | (fi >> 6), 0x80 | (fi & 0x3F)])
+        else:
+            num = bytes([0xE0 | (fi >> 12), 0x80 | ((fi >> 6) & 0x3F), 0x80 | (fi & 0x3F)])
+        # sync, fixed blocking; the block size in 16 bits after the header,
+        # the rate from STREAMINFO; independent channels, 16 bits a sample
+        head = bytes([0xFF, 0xF8, 0x70, ((ch - 1) << 4) | 0x08]) + num + \
+            struct.pack(">H", len(blk) - 1)
+        c = 0
+        for b in head:
+            c = FLAC_CRC8[c ^ b]
+        frame = head + bytes([c]) + b"".join(b"\x02" + blk[:, k].tobytes() for k in range(ch))
+        c = 0
+        for b in frame:
+            c = ((c << 8) & 0xFFFF) ^ FLAC_CRC16[(c >> 8) ^ b]
+        out += frame + struct.pack(">H", c)
+    return bytes(out)
+
+
+WEM_VARIANTS = ("pcm16", "extensible", "float", "pcm24", "pcm8", "rifx")
+
+
+def pcm_wem(y: np.ndarray, sr: int, variant: str) -> bytes:
+    """A Wwise PCM ``.wem`` (RIFF or RIFX WAVE with a vendor chunk) of mono
+    float ``y``: 16-bit, WAVE_FORMAT_EXTENSIBLE, float, 24-bit, 8-bit, or
+    big-endian 16-bit."""
+    e = ">" if variant == "rifx" else "<"
+
+    def q(bits):
+        top = 2 ** (bits - 1)
+        return np.clip(np.round(y * (top - 1)), -top, top - 1).astype(np.int64)
+
+    if variant == "float":
+        tag, bits, data = 3, 32, y.astype(e + "f4").tobytes()
+    elif variant == "pcm24":
+        v = q(24) & 0xFFFFFF
+        tag, bits = 1, 24
+        data = np.stack([v & 0xFF, (v >> 8) & 0xFF, v >> 16], 1).astype(np.uint8).tobytes()
+    elif variant == "pcm8":
+        tag, bits, data = 1, 8, (q(8) + 128).astype(np.uint8).tobytes()
+    else:
+        tag, bits, data = 1, 16, q(16).astype(e + "i2").tobytes()
+    fmt = struct.pack(e + "HHIIHH", 0xFFFE if variant == "extensible" else tag, 1, sr,
+                      sr * bits // 8, bits // 8, bits)
+    if variant == "extensible":
+        fmt += struct.pack(e + "HHI", 22, bits, 4) + struct.pack(e + "H", 1) + bytes(14)
+    chunks = [(b"fmt ", fmt), (b"akd ", bytes(6)), (b"data", data)]
+    body = b"WAVE" + b"".join(c + struct.pack(e + "I", len(d)) + d + bytes(len(d) & 1)
+                              for c, d in chunks)
+    return (b"RIFX" if e == ">" else b"RIFF") + struct.pack(e + "I", len(body)) + body
+
+
+def http_raw(port: int, path: str, raw: bytes, timeout: float = 600.0):
+    """POST raw bytes (a wav upload) to the server: (status, reply)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("localhost", port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=raw, headers={"Content-Type": "audio/wav"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def trace_busy(trace_dir: str) -> dict:
+    """Over the Chrome traces in ``trace_dir``: their count, the kernel
+    count, the union of the kernels' intervals (ms) and each event
+    category's count."""
+    kinds: dict = {}
+    spans, traces = [], 0
+    for d, _, fs in os.walk(trace_dir):
+        for f in fs:
+            if f.endswith(".json"):
+                traces += 1
+                with open(os.path.join(d, f), encoding="utf-8") as fh:
+                    for e in json.load(fh).get("traceEvents", []):
+                        kinds[e.get("cat")] = kinds.get(e.get("cat"), 0) + 1
+                        if e.get("cat") == "kernel":
+                            spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"traces": traces, "kernels": len(spans), "busy_ms": busy / 1e3, "events": kinds}
+
+
+def labels_turns(path: str) -> list:
+    """The turns of an Audacity label file the diarization tool wrote."""
+    turns = []
+    with open(path, encoding="utf-8") as f:
+        for ln in f.read().splitlines():
+            a, b, who = ln.split("\t")
+            turns.append({"start": float(a), "end": float(b), "speaker": int(who.split("_")[1])})
+    return turns
+
+
+def tools_phase(dev, smi: str, work: str, data_ds: str, n_wav44: int = TOOLS_WAV44,
+                n_flac: int = TOOLS_FLAC, srt_s: float = TOOLS_SRT_S, n_wem: int = TOOLS_WEM,
+                diar_s: float = TOOLS_DIAR_S, n_check: int = TOOLS_CHECK,
+                profile_corpus: int = 64) -> tuple:
+    """Phase 20, ``tools``: the 13 dataset tools of the port as the UI's
+    tools panel drives them, each a ``runTask`` over the server's websocket
+    (``serve_with_http`` on a thread, the server on ``dev``), on the
+    ``data`` phase's dataset ``data_ds`` (256 clips, 1 153 s):
+
+    1. set-up: a copy of the dataset with ``n_wav44`` clips as 44.1 kHz
+       stereo wavs and ``n_flac`` as 22.05 kHz stereo FLAC; a recording of
+       ``srt_s`` seconds of the clips with its ``.srt``; ``n_wem`` PCM
+       ``.wem`` files and, where libvorbisenc is present, 4 Vorbis ones
+       (inline and external codebooks, ``tests/torch_wem_fixture.py``);
+       two diarization recordings of about ``diar_s`` seconds from the DER
+       harness's generator (``tests/formant_speech.py``) and its 3- and
+       5-speaker specs, and the harness's own two recordings of those specs
+       (``DIAR_CASES``); a 256-line metadata pair; a noise profile;
+    2. the tools path (launch counts set to 0 just before it): formatting,
+       normalize, silence_cut, silence_split, cut_padding, noise_removal,
+       srt_split, wem2ogg; cluster_speakers with ``numClusters`` 4
+       (k-means) and 0 (affinity propagation); speaker_search (4 queries
+       against the dataset); speaker_cluster_search over the k-means
+       folders; diarization of the four recordings with Audacity labels
+       (``numSpeakers`` unset: auto-k); wer_evaluation; then
+       ``/uploadNoiseProfile`` and a ``/uploadRecording`` with
+       ``record_noise_removal`` on;
+    3. one more speaker_search (a query against ``profile_corpus`` clips)
+       between ``/profileStart`` and ``/profileStop``;
+    4. the checks: every tool ends in ``tasks_next``; each tool's outputs;
+       the encoder on ``dev``; ``n_check`` clips' embeddings within 1e-3
+       L1 of the CPU's (the same seeded weights), their k-means and
+       affinity-propagation partitions equal; the search order the CPU's
+       up to swaps of neighbours within the embedding error; DER against
+       the truth within the harness's bars (reported for the 3-minute
+       5-speaker recording) and the speakers found, and the DER between
+       the card's turns and the CPU's; the recording equal to
+       ``_denoise`` of the upload, sample for sample; the Vorbis ``.ogg``
+       decoding to its packets' own PCM.
+
+    Returns the path's launch counts and the record."""
+    import asyncio
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from formant_speech import build_conversation
+
+    from xva_trainer_tpu_torch import native
+    from xva_trainer_tpu_torch.app.server import AppServer, make_logger
+    from xva_trainer_tpu_torch.data.audio_io import load_wav, resample, save_wav
+    from xva_trainer_tpu_torch.models.speaker_encoder import SpeakerEncoder
+    from xva_trainer_tpu_torch.native import vorbis
+    from xva_trainer_tpu_torch.ops import _cuda
+    from xva_trainer_tpu_torch.tools.audio_tools import (NoiseRemovalTool, decode_wem_pcm,
+                                                         format_srt)
+    from xva_trainer_tpu_torch.tools.cluster import affinity_propagation, kmeans_labels
+    from xva_trainer_tpu_torch.tools.der import der
+    from xva_trainer_tpu_torch.tools.speaker_tools import diarize, embed_files, topk_similarity
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "tools")
+    rng = np.random.default_rng(40)
+    rec: dict = {"gpu": smi}
+
+    # ---- 1. set-up ----
+    t0 = time.perf_counter()
+    with open(os.path.join(data_ds, "metadata.csv"), encoding="utf-8") as f:
+        rows = [ln.split("|", 1) for ln in f.read().splitlines() if ln.strip()]
+    clips = os.path.join(root, "clips")
+    os.makedirs(clips)
+    flac_pcm, names, audio_s = {}, [], 0.0
+    for i, (name, _) in enumerate(rows):
+        sr, pcm = wavfile.read(os.path.join(data_ds, "wavs", name))
+        y = pcm.astype(np.float32) / 32768.0
+        audio_s += len(y) / sr
+        stem = os.path.splitext(name)[0]
+        other = 0.8 * np.roll(y, 37)  # a second channel
+        if i < n_wav44:
+            st = np.stack([resample(y, sr, 44100), resample(other, sr, 44100)], 1)
+            wavfile.write(os.path.join(clips, stem + ".wav"), 44100,
+                          (np.clip(st, -1, 1) * 32767).astype(np.int16))
+            names.append(stem + ".wav")
+        elif i < n_wav44 + n_flac:
+            st = (np.clip(np.stack([y, other], 1), -1, 1) * 32767).astype(np.int16)
+            with open(os.path.join(clips, stem + ".flac"), "wb") as f:
+                f.write(flac_verbatim(st, sr))
+            flac_pcm[stem] = st
+            names.append(stem + ".flac")
+        else:
+            shutil.copyfile(os.path.join(data_ds, "wavs", name), os.path.join(clips, name))
+            names.append(name)
+    # the srt_split recording: clips of the three shorter buckets in a
+    # seeded order, 0.4 s apart, one .srt entry each
+    pieces, entries, srt_total = [], [], 0.0
+    for i in rng.permutation(min(len(rows), 3 * len(rows) // 4)):
+        if srt_total >= srt_s:
+            break
+        y, _ = load_wav(os.path.join(data_ds, "wavs", rows[i][0]))
+        pieces += [y, np.zeros(int(0.4 * SR), np.float32)]
+        entries.append({"start": srt_total, "end": srt_total + len(y) / SR, "text": rows[i][1]})
+        srt_total += len(y) / SR + 0.4
+    long_dir = os.path.join(root, "long")
+    os.makedirs(long_dir)
+    save_wav(os.path.join(long_dir, "recording.wav"), np.concatenate(pieces))
+    with open(os.path.join(long_dir, "recording.srt"), "w", encoding="utf-8") as f:
+        f.write(format_srt(entries))
+    # .wem: PCM containers at 48 kHz, and Vorbis ones where libvorbisenc is present
+    wems = os.path.join(root, "wems")
+    os.makedirs(wems)
+    wem_pcm = {}
+    for i in range(n_wem):
+        y, _ = load_wav(os.path.join(data_ds, "wavs", rows[i][0]), target_sr=48000)
+        stem = f"line{i:02d}_{WEM_VARIANTS[i % len(WEM_VARIANTS)]}"
+        with open(os.path.join(wems, stem + ".wem"), "wb") as f:
+            f.write(pcm_wem(y, 48000, WEM_VARIANTS[i % len(WEM_VARIANTS)]))
+        wem_pcm[stem] = y
+    vorbis_found = vorbis.available()
+    golden, codebooks = {}, None
+    if vorbis_found:
+        import torch_wem_fixture
+        from xva_trainer_tpu_torch.tools.wwise_vorbis import OggPageWriter, write_packed_library
+
+        books: list = []
+        for i, variant in enumerate(("inline", "inline", "external", "external")):
+            y, _ = load_wav(os.path.join(data_ds, "wavs", rows[n_wem + i][0]))
+            headers, audio = vorbis.encode_ogg_packets(y, SR)
+            kw = {"packed_books": books} if variant == "external" else {}
+            with open(os.path.join(wems, f"vorbis{i}_{variant}.wem"), "wb") as f:
+                f.write(torch_wem_fixture.build_wem(headers, audio, 1, SR, variant, **kw))
+            w = OggPageWriter()  # the packets' own Ogg stream, whose decode the rebuild must give
+            w.add_packet(headers[0], granule=0)
+            w.flush(0)
+            w.add_packet(headers[1])
+            w.add_packet(headers[2])
+            w.flush(0)
+            for j, (pkt, gran) in enumerate(audio):
+                w.add_packet(pkt, granule=gran, eos=j == len(audio) - 1)
+                if j < len(audio) - 1:
+                    w.maybe_flush(gran)
+            gpath = os.path.join(root, f"golden{i}.ogg")
+            with open(gpath, "wb") as f:
+                f.write(w.to_bytes())
+            golden[f"vorbis{i}_{variant}"] = vorbis.decode_ogg(gpath)
+        codebooks = os.path.join(root, "game.pcb")
+        write_packed_library(books, codebooks)
+    # diarization: the DER harness's specs, repeated to about diar_s seconds
+    diar = os.path.join(root, "diar")
+    os.makedirs(diar)
+    truth = {}
+    for name, case in DIAR_CASES.items():
+        one = sum(d for _, d in case["spec"]) + 0.35 * len(case["spec"])
+        reps = max(1, round(min(case["seconds"], diar_s) / one))
+        y, turns = build_conversation(case["spec"] * reps, with_breaths=True, **case["kw"])
+        save_wav(os.path.join(diar, name + ".wav"), y)
+        truth[name] = (y, turns)
+    # wer_evaluation: the dataset's transcripts against a seeded "ASR" pass
+    meta = os.path.join(root, "metadata.csv")
+    shutil.copyfile(os.path.join(data_ds, "metadata.csv"), meta)
+    asr = []
+    for n, text in rows:
+        words = text.split()
+        for _ in range(int(rng.integers(0, 3))):
+            words[int(rng.integers(len(words)))] = "uh" if rng.random() < 0.6 else ""
+        asr.append(f"{os.path.splitext(n)[0]}|{' '.join(w for w in words if w)}")
+    asr_csv = os.path.join(root, "asr_metadata.csv")
+    with open(asr_csv, "w", encoding="utf-8") as f:
+        f.write("\n".join(asr) + "\n")
+    noise_path = os.path.join(root, "noise.wav")
+    save_wav(noise_path, 0.02 * rng.standard_normal(SR).astype(np.float32))
+
+    def wav_bytes(y, sr):
+        import io
+
+        buf = io.BytesIO()
+        wavfile.write(buf, sr, (np.clip(y, -1, 1) * 32767).astype(np.int16))
+        return buf.getvalue()
+
+    mic = voiced_clip(rng, 3.0)
+    mic_wav = wav_bytes(resample(mic + 0.02 * rng.standard_normal(len(mic)).astype(np.float32),
+                                 SR, 44100), 44100)
+    noise_wav = wav_bytes(0.02 * rng.standard_normal(44100).astype(np.float32), 44100)
+    rec_ds = os.path.join(root, "mic_voice")
+    os.makedirs(os.path.join(rec_ds, "wavs"))
+    query = os.path.join(root, "query")
+    os.makedirs(query)
+    for n in names[-4:]:
+        shutil.copyfile(os.path.join(clips, n), os.path.join(query, "q_" + n))
+    prof_corpus = os.path.join(root, "prof_corpus")
+    os.makedirs(prof_corpus)
+    for n in names[:profile_corpus]:
+        shutil.copyfile(os.path.join(clips, n), os.path.join(prof_corpus, n))
+    rec.update(clips=len(names), clips_audio_s=audio_s, wav44=n_wav44, flac=n_flac,
+               srt_entries=len(entries), srt_recording_s=srt_total, pcm_wem=n_wem,
+               libvorbis="found" if vorbis_found else "not found",
+               vorbis_wem=4 if vorbis_found else "not run: libvorbis not found",
+               diarization_s={k: len(v[0]) / SR for k, v in truth.items()},
+               setup_s=time.perf_counter() - t0)
+    print(f"tools: libvorbis {rec['libvorbis']}", flush=True)
+
+    # ---- the server ----
+    http_port = free_port()
+    ws_port = free_port()
+    while ws_port == http_port:
+        ws_port = free_port()
+    old_cwd = os.getcwd()
+    os.chdir(root)  # the settings, noise_profile.wav and the log live in the working directory
+    app = AppServer(http_port, ws_port, logger=make_logger(os.path.join(root, "server.log")),
+                    device=str(dev))
+    srv_errors: list = []
+
+    def serve():
+        try:
+            asyncio.run(app.serve_with_http())
+        except BaseException as e:  # noqa: BLE001 — reported by the phase
+            srv_errors.append(repr(e))
+
+    srv = threading.Thread(target=serve, name="tools-server", daemon=True)
+    client = None
+
+    def http(path, body=None):
+        status, out, _ = http_call(http_port, path, body)
+        check(status == 200, f"tools: {path} answered {status}: {str(out)[-2000:]}")
+        return out
+
+    def run_tool(model, data, timeout=900):
+        """One runTask; its seconds to tasks_next (a tasks_error fails) and
+        the task_info messages before it."""
+        t_send = time.perf_counter()
+        client.send_json(model=model, task="runTask", data=data)
+        info = []
+        while True:
+            try:
+                _, msg = client.events.get(
+                    timeout=max(0.01, t_send + timeout - time.perf_counter()))
+            except queue.Empty:
+                raise AssertionError(f"tools: no tasks_next from {model} in {timeout} s") from None
+            ev = json.loads(msg)
+            check(ev.get("key") != "tasks_error",
+                  f"tools: {model} sent tasks_error: {str(ev.get('data'))[-3000:]}")
+            if ev.get("key") == "tasks_next":
+                return time.perf_counter() - t_send, info
+            info.append(ev.get("data"))
+
+    try:
+        srv.start()
+        end = time.perf_counter() + 60
+        while True:
+            try:
+                if http_call(http_port, "/checkReady", timeout=5)[1] == {"ready": True}:
+                    break
+            except OSError:
+                pass
+            check(time.perf_counter() < end and not srv_errors, f"tools: no server {srv_errors}")
+            time.sleep(0.05)
+        http("/setDevice", {"device": str(dev)})
+        client = WsClient(ws_port)
+        client.start_reader()
+        enc = app.manager.sync_init_model("speaker_encoder")  # the server's one encoder
+        on_dev = {p.device.type for p in enc.model.parameters()}
+        check(on_dev == {dev.type}, f"tools: the encoder's parameters on {on_dev}")
+        emb = {"s": 0.0, "crops": 0, "calls": 0}
+        plain_embed = enc.embed
+
+        def timed_embed(crops):  # every embedding batch, timed on the tool's own thread
+            sync()
+            t1 = time.perf_counter()
+            out = plain_embed(crops)  # ends in .cpu(): synchronised
+            emb["s"] += time.perf_counter() - t1
+            emb["crops"] += len(crops)
+            emb["calls"] += 1
+            return out
+
+        enc.embed = timed_embed
+        mem_start_gb = None
+        if on_card:  # earlier phases' tensors still held count in the peak; the rise is the path's
+            torch.cuda.reset_peak_memory_stats()
+            mem_start_gb = torch.cuda.memory_allocated() / 1e9
+        out = {k: os.path.join(root, "out_" + k) for k in (
+            "formatting", "normalize", "silence_cut", "silence_split", "cut_padding",
+            "noise_removal", "srt_split", "wem2ogg", "kmeans", "affinity", "ranked")}
+        wem_req = {"inPath": wems, "outputDirectory": out["wem2ogg"], "toWav": True}
+        if codebooks:
+            wem_req["codebooksPath"] = codebooks
+        requests = [
+            ("formatting", "formatting", {"inPath": clips, "outputDirectory": out["formatting"],
+                                          "toolSettings": {"useMP": False,
+                                                           "formatting_hz": 22050}}),
+            ("normalize", "normalize", {"inPath": clips, "outputDirectory": out["normalize"]}),
+            ("silence_cut", "silence_cut", {"inPath": clips,
+                                            "outputDirectory": out["silence_cut"]}),
+            ("silence_split", "silence_split", {"inPath": clips,
+                                                "outputDirectory": out["silence_split"]}),
+            ("cut_padding", "cut_padding", {"inPath": clips,
+                                            "outputDirectory": out["cut_padding"]}),
+            ("noise_removal", "noise_removal", {"inPath": clips, "noiseProfile": noise_path,
+                                                "outputDirectory": out["noise_removal"]}),
+            ("srt_split", "srt_split", {"inPath": os.path.join(long_dir, "recording.wav"),
+                                        "srtPath": os.path.join(long_dir, "recording.srt"),
+                                        "outputDirectory": out["srt_split"]}),
+            ("wem2ogg", "wem2ogg", wem_req),
+            ("cluster_kmeans", "cluster_speakers", {"inPath": clips,
+                                                    "outputDirectory": out["kmeans"],
+                                                    "toolSettings": {"numClusters": 4}}),
+            ("cluster_affinity", "cluster_speakers", {"inPath": clips,
+                                                      "outputDirectory": out["affinity"],
+                                                      "toolSettings": {"numClusters": 0}}),
+            ("speaker_search", "speaker_search", {"queryPath": query, "corpusPath": clips,
+                                                  "outputDirectory": out["ranked"]}),
+            ("speaker_cluster_search", "speaker_cluster_search", {
+                "queryPath": query, "corpusPath": out["kmeans"]}),
+            ("diarization", "diarization", {"inPath": diar, "toolSettings": {
+                "outputAudacityLabels": True}}),
+            ("wer_evaluation", "wer_evaluation", {
+                "userMetadata": meta, "asrMetadata": asr_csv,
+                "outputFile": os.path.join(root, "wer_report.txt")}),
+        ]
+
+        # ---- 2. the tools path: the counts are set to 0 just before it ----
+        _cuda.reset_launch_counts()
+        t_path = time.perf_counter()
+        tools: dict = {}
+        for label, model, data in requests:
+            e0 = dict(emb)
+            sec, info = run_tool(model, data)
+            tools[label] = {"seconds": sec, "embed_s": emb["s"] - e0["s"],
+                            "embedded_crops": emb["crops"] - e0["crops"],
+                            "embed_calls": emb["calls"] - e0["calls"]}
+            if info:
+                tools[label]["task_info"] = [str(m)[:300] for m in info]
+        # a mic recording with noise removal on, uploaded as the UI sends it
+        t1 = time.perf_counter()
+        http("/appSettings", {"set": {"record_noise_removal": True,
+                                      "noise_removal_strength": 0.3}})
+        st_n, noise_reply = http_raw(http_port, "/uploadNoiseProfile", noise_wav)
+        st_r, rec_reply = http_raw(http_port, "/uploadRecording?path=" + rec_ds
+                                   + "&name=take1&text=a%20denoised%20line", mic_wav)
+        check(st_n == st_r == 200 and rec_reply.get("ok") and noise_reply.get("ok"),
+              f"tools: the uploads answered {st_n} {noise_reply}, {st_r} {rec_reply}")
+        tools["upload_recording"] = {"seconds": time.perf_counter() - t1}
+        path_s = time.perf_counter() - t_path
+        launches = dict(_cuda.LAUNCHES)  # the end of the tools path
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+        check(launches == {k: 0 for k in _cuda.KERNELS},
+              f"tools: the path launched a fused kernel: {launches}")
+
+        # ---- 3. a profiled speaker_search ----
+        trace_dir = os.path.join(root, "trace")
+        started = http("/profileStart", {"dir": trace_dir})
+        prof_s, _ = run_tool("speaker_search", {"queryPath": query, "corpusPath": prof_corpus,
+                                                "outputDirectory": os.path.join(root, "ranked_p")})
+        stopped = http("/profileStop")
+        busy = trace_busy(trace_dir)
+        check(started["ok"] and stopped["ok"] and busy["events"].get("cpu_op", 0) > 0
+              and (busy["kernels"] > 0 or not on_card),
+              f"tools: the profiler {started} {stopped}, trace {busy}")
+        rec["profiled_speaker_search"] = dict(
+            busy, seconds=prof_s, files=len(os.listdir(query)) + profile_corpus,
+            host_share=1.0 - busy["busy_ms"] / (prof_s * 1e3))
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    finally:
+        enc_cuda = app.manager.models_bank.get("speaker_encoder")
+        if enc_cuda is not None:
+            enc_cuda.__dict__.pop("embed", None)  # back to the class's method
+        os.chdir(old_cwd)
+        if srv.is_alive():
+            try:
+                http_call(http_port, "/stopServer", timeout=30)
+            except OSError:
+                pass
+            srv.join(timeout=60)
+        if client is not None:
+            client.close()
+    check(not srv.is_alive() and not srv_errors, f"tools: the server {srv_errors}")
+
+    # ---- 4. the checks ----
+    n_in = len(names)
+    # the audio tools: every input's output, FLAC decoded, 44.1 kHz resampled
+    fmt = sorted(os.listdir(out["formatting"]))
+    check(fmt == sorted([".progress.txt"] + [os.path.splitext(n)[0] + ".wav" for n in names]),
+          f"tools: formatting wrote {len(fmt)} files for {n_in}")
+    flac_err = 0.0
+    for stem, st in flac_pcm.items():
+        y, sr = native.decode_flac(os.path.join(clips, stem + ".flac"))
+        flac_err = max(flac_err, float(np.abs(y - st.astype(np.float64).mean(1) / 32768).max()))
+        sr_o, o = wavfile.read(os.path.join(out["formatting"], stem + ".wav"))
+        check(sr == sr_o == SR and o.ndim == 1 and len(o) == len(st),
+              f"tools: formatting of {stem}.flac: {sr_o} Hz, {o.shape}")
+    check(flac_err < 1e-6, f"tools: the FLAC decode misses the PCM by {flac_err}")
+    for stem in (os.path.splitext(n)[0] for n in names[:n_wav44]):
+        sr_o, o = wavfile.read(os.path.join(out["formatting"], stem + ".wav"))
+        n44 = len(wavfile.read(os.path.join(clips, stem + ".wav"))[1])
+        check(sr_o == SR and o.ndim == 1 and len(o) == n44 // 2,
+              f"tools: formatting of the 44.1 kHz {stem}: {sr_o} Hz, {o.shape}")
+    counts = {}
+    for k in ("normalize", "silence_cut", "cut_padding", "noise_removal"):
+        got = [f for f in os.listdir(out[k]) if f != ".progress.txt"]
+        counts[k] = len(got)
+        check(sorted(got) == sorted(names), f"tools: {k} wrote {len(got)} of {n_in}")
+    split = [f for f in os.listdir(out["silence_split"]) if f.endswith(".wav")]
+    counts["silence_split"] = len(split)
+    check(len(split) >= n_in // 2, f"tools: silence_split wrote {len(split)} pieces")
+    with open(os.path.join(out["srt_split"], "metadata.csv"), encoding="utf-8") as f:
+        srt_rows = f.read().splitlines()
+    srt_wavs = os.listdir(os.path.join(out["srt_split"], "wavs"))
+    counts["srt_split"] = len(srt_wavs)
+    check(len(srt_rows) == len(srt_wavs) == sum(e["end"] - e["start"] >= 0.2 for e in entries),
+          f"tools: srt_split {len(srt_rows)} lines, {len(srt_wavs)} wavs, {len(entries)} entries")
+    # wem2ogg: the PCM containers' samples; the Vorbis rebuilds decode as their packets do
+    wem_err = {}
+    for stem, y in wem_pcm.items():
+        sr_o, o = wavfile.read(os.path.join(out["wem2ogg"], stem + ".wav"))
+        ref = decode_wem_pcm(os.path.join(wems, stem + ".wem"))
+        variant = stem.split("_", 1)[1]
+        err = float(np.abs(ref[0] - y).max())
+        wem_err[variant] = max(wem_err.get(variant, 0.0), err)
+        # within half a step of the container's sample width (8-bit: 1/128)
+        check(sr_o == 48000 and err < (1 / 127 if variant == "pcm8" else 1e-4)
+              and np.array_equal(o, (np.clip(ref[0], -1, 1) * 32767).astype(np.int16)),
+              f"tools: wem2ogg of {stem}: decoded {err} from its samples")
+    vorbis_rec = "not run: libvorbis not found"
+    if vorbis_found:
+        vorbis_rec = {}
+        for stem, (gy, gsr) in golden.items():
+            y, sr_v = vorbis.decode_ogg(os.path.join(out["wem2ogg"], stem + ".ogg"))
+            check(sr_v == gsr == SR and np.array_equal(y, gy)
+                  and os.path.exists(os.path.join(out["wem2ogg"], stem + ".wav")),
+                  f"tools: the rebuilt {stem}.ogg decodes to other samples than its packets")
+            vorbis_rec[stem] = len(y)
+    rec["wem2ogg"] = {"pcm_wem": len(wem_pcm), "pcm_max_err_by_variant": wem_err,
+                      "vorbis": vorbis_rec}
+    # wer_evaluation: a line a clip, sorted by WER
+    with open(os.path.join(root, "wer_report.txt"), encoding="utf-8") as f:
+        report = f.read().splitlines()
+    wers = [float(ln.split(" | ")[0]) for ln in report]
+    check(len(report) == len(rows) and wers == sorted(wers, reverse=True),
+          f"tools: the WER report has {len(report)} lines for {len(rows)}")
+    rec["wer"] = {"lines": len(report), "mean": float(np.mean(wers)),
+                  "event": tools["wer_evaluation"].get("task_info")}
+    # the recording: the upload denoised against the saved profile, sample for sample
+    _, prof_pcm = wavfile.read(os.path.join(root, "noise_profile.wav"))
+    tool = NoiseRemovalTool(device="cpu")
+    want = tool._denoise(AppServer._decode_mic_wav(mic_wav),
+                         tool._profile(prof_pcm.astype(np.float32) / 32767.0), 0.3)
+    _, stored = wavfile.read(os.path.join(rec_ds, "wavs", "take1.wav"))
+    check(np.array_equal(stored, (np.clip(want, -1.0, 1.0) * 32767.0).astype(np.int16)),
+          "tools: the stored recording is not _denoise of the upload")
+    rec["recording"] = {"samples": len(stored), "seconds": rec_reply["seconds"]}
+
+    # the speaker tools: the card against the CPU, the same seeded weights
+    cpu_enc = SpeakerEncoder(seed=0, device="cpu")
+    sd_cpu, sd_dev = cpu_enc.model.state_dict(), enc.model.state_dict()
+    check(all(torch.equal(sd_cpu[k], sd_dev[k].cpu()) for k in sd_cpu)
+          and cpu_enc.pretrained == enc.pretrained, "tools: the CPU encoder is not the card's")
+    picks = [os.path.join(clips, n) for n in names[:: max(1, n_in // n_check)][:n_check]]
+    t1 = time.perf_counter()
+    e_dev = embed_files(picks, enc)
+    sync()
+    dev_ms = (time.perf_counter() - t1) * 1e3 / len(picks)
+    t1 = time.perf_counter()
+    e_cpu = embed_files(picks, cpu_enc)
+    cpu_ms = (time.perf_counter() - t1) * 1e3 / len(picks)
+    l1 = np.abs(e_dev - e_cpu).mean(axis=1)
+    check(l1.max() < TOL, f"tools: embeddings on the card vs the CPU, L1 {l1.max()}")
+
+    def parts(labels):
+        return sorted(sorted(np.flatnonzero(labels == c).tolist()) for c in np.unique(labels))
+
+    k = min(4, len(picks))
+    same_km = parts(kmeans_labels(e_dev, k)) == parts(kmeans_labels(e_cpu, k))
+    same_ap = np.array_equal(affinity_propagation(e_dev), affinity_propagation(e_cpu))
+    check(same_km and same_ap, f"tools: partitions card vs CPU: k-means {same_km}, "
+          f"affinity propagation {same_ap}")
+    # the search order: the CPU's, up to swaps of neighbours closer than the error
+    qd, qc = e_dev[:1], e_cpu[:1]
+    od, sd = topk_similarity(qd, e_dev, k=len(picks), device=dev)
+    oc, sc = topk_similarity(qc, e_cpu, k=len(picks))
+    gap = float(np.abs(sd - sc).max()) * 2 + 1e-6
+    swaps = [i for i in range(len(od)) if od[i] != oc[i]]
+    check(all(abs(sc[od[i]] - sc[oc[i]]) <= gap for i in swaps),
+          f"tools: the search order {od} vs the CPU's {oc} (scores {sd} {sc})")
+    # the tool's ranked copies: all the corpus, each once
+    ranked = sorted(os.listdir(out["ranked"]))
+    ranked = [f for f in ranked if not f.startswith(".")]
+    check(len(ranked) == n_in and {f[6:] for f in ranked} == set(names),
+          f"tools: speaker_search copied {len(ranked)} of {n_in}")
+    km_dirs = sorted(d for d in os.listdir(out["kmeans"])
+                     if os.path.isdir(os.path.join(out["kmeans"], d)))
+    ap_dirs = sorted(d for d in os.listdir(out["affinity"])
+                     if os.path.isdir(os.path.join(out["affinity"], d)))
+    with open(os.path.join(out["kmeans"], "cluster_search_results.txt"), encoding="utf-8") as f:
+        cs = f.read().splitlines()
+    check(len(km_dirs) == min(4, n_in) and sum(len(os.listdir(os.path.join(out["kmeans"], d)))
+                                    for d in km_dirs) == n_in
+          and ap_dirs and len(cs) == len(km_dirs),
+          f"tools: clusters {km_dirs}, {len(ap_dirs)} affinity clusters, search report {cs}")
+    rec["speaker"] = {"l1_max": float(l1.max()), "l1_mean": float(l1.mean()),
+                      "encoder_ms_per_file_card": dev_ms, "encoder_ms_per_file_cpu": cpu_ms,
+                      "kmeans_partition_equal": same_km, "affinity_labels_equal": same_ap,
+                      "search_swaps": len(swaps), "kmeans_clusters": len(km_dirs),
+                      "affinity_clusters": len(ap_dirs), "cluster_search": cs}
+    # diarization: DER against the truth, and the card's turns against the CPU's
+    diar_out = diar.rstrip("/") + "_diarized"
+    d_rec = {}
+    for name, case in DIAR_CASES.items():
+        y, ref = truth[name]
+        hyp = labels_turns(os.path.join(diar_out, name + "_labels.txt"))
+        m = der(ref, hyp)
+        found = len({t["speaker"] for t in hyp})
+        d_rec[name] = {"der": m, "speakers": found, "turns": len(hyp), "true_turns": len(ref),
+                       "true_speakers": len({s for s, _ in case["spec"]}),
+                       "der_bar": case["bar"] or "reported (0.30 not held)"}
+        if case["on_cpu"]:
+            t1 = time.perf_counter()
+            hyp_cpu = diarize(y, SR, cpu_enc)
+            d_rec[name].update(cpu_seconds=time.perf_counter() - t1, der_vs_cpu=der(hyp_cpu, hyp),
+                               der_cpu=der(ref, hyp_cpu),
+                               cpu_speakers=len({t["speaker"] for t in hyp_cpu}))
+        least, most = case["speakers"]
+        check((case["bar"] is None or m["der"] <= case["bar"]) and least <= found <= most,
+              f"tools: diarization of {name}: DER {m}, {found} speakers")
+    audio_min = sum(len(v[0]) for v in truth.values()) / SR / 60
+    dz = tools["diarization"]
+    rec["diarization"] = dict(d_rec, audio_minutes=audio_min,
+                              s_per_audio_minute=dz["seconds"] / audio_min,
+                              embed_s_per_audio_minute=dz["embed_s"] / audio_min,
+                              host_s_per_audio_minute=(dz["seconds"] - dz["embed_s"]) / audio_min)
+    # the rates
+    rate_of = {"formatting": n_in, "normalize": n_in, "silence_cut": n_in, "silence_split": n_in,
+               "cut_padding": n_in, "noise_removal": n_in, "wem2ogg": len(os.listdir(wems)),
+               "cluster_kmeans": n_in, "cluster_affinity": n_in,
+               "speaker_search": n_in + len(os.listdir(query)), "wer_evaluation": len(rows)}
+    for label, v in tools.items():
+        if label in rate_of:
+            v["files_per_s"] = rate_of[label] / v["seconds"]
+        if label in ("cluster_kmeans", "cluster_affinity", "speaker_search"):
+            v["encoder_ms_per_file"] = v["embed_s"] * 1e3 / rate_of[label]
+    for label in ("formatting", "normalize", "silence_cut", "silence_split", "cut_padding",
+                  "noise_removal"):
+        tools[label]["audio_s_per_s"] = audio_s / tools[label]["seconds"]
+    tools["srt_split"]["audio_s_per_s"] = srt_total / tools["srt_split"]["seconds"]
+    tools["diarization"]["audio_s_per_s"] = audio_min * 60 / dz["seconds"]
+    rec.update(tools=tools, counts=counts, path_seconds=path_s, launches=launches,
+               peak_gb=peak_gb, allocated_at_start_gb=mem_start_gb,
+               phase_seconds=time.perf_counter() - t_phase)
+    return launches, rec
 
 
 def main() -> int:
@@ -3893,6 +4613,9 @@ def main() -> int:
         srv_launches, srv_record = server_phase(dev, smi, data_work, data_ctx["dataset"], ckpt,
                                                 os.path.join(data_work, "pipe_voice"), requests)
         emit("server", **srv_record)
+        # the dataset tools over the server's websocket, on the data phase's clips
+        tools_launches, tools_record = tools_phase(dev, smi, data_work, data_ctx["dataset"])
+        emit("tools", **tools_record)
         # the least time for the v2 build's launches (mel only): each group's
         # bound, summed
         fp_build = fp_record["cache_build"]
@@ -3952,7 +4675,7 @@ def main() -> int:
     train_launches, train = train_phases(cfg_m, dev)
     by_path = {"serve": launches, "data": data_launches, "loop": loop_launches,
                "multilingual": ml_launches, "fastpitch": fp_launches, "hifigan": hg_launches,
-               "server": srv_launches, "train": train_launches}
+               "server": srv_launches, "tools": tools_launches, "train": train_launches}
 
     kernels = [{
         "name": "fused_stft", "route": "cuda",

@@ -296,33 +296,50 @@ def test_save_recording_parity(pair):
 
 
 def test_save_recording_with_noise_removal_refused(pair):
-    """Noise removal needs the unported noise_removal tool: the recording is
-    refused with an error naming it, and nothing is written."""
-    srv = pair.servers["torch"]
-    ds = pair.roots["torch"] / "datasets" / "game_voice"
-    with pair.cwd("torch"):
-        srv.save_noise_profile(_mic_wav(22050, 0.5))
-        srv.app_settings["record_noise_removal"] = True
-        before = tree_files(ds)
-        with pytest.raises(RuntimeError, match="noise_removal.*not ported"):
-            srv.save_recording(str(ds), "take2", _mic_wav(), text="x")
-        assert tree_files(ds) == before
+    """A recording with ``record_noise_removal`` on is no longer refused: it
+    is denoised against the saved noise profile (``NoiseRemovalTool``'s
+    ``_profile`` and ``_denoise``), and the stored recording and transcript
+    equal the JAX server's, sample for sample."""
+    out = {}
+    for key, srv in pair.servers.items():
+        ds = pair.roots[key] / "datasets" / "game_voice"
+        with pair.cwd(key):
+            srv.save_noise_profile(_mic_wav(22050, 0.5))
+            srv.app_settings["record_noise_removal"] = True
+            srv.app_settings["noise_removal_strength"] = 0.4
+            out[key] = srv.save_recording(str(ds), "take2", _mic_wav(), text="x")
+    assert out["torch"] == out["jax"] and out["torch"]["ok"]
+    files = pair.files()
+    assert files["torch"] == files["jax"]
+    stored = wavfile.read(io.BytesIO(files["torch"]["datasets/game_voice/wavs/take2.wav"]))[1]
+    plain = wavfile.read(io.BytesIO(_mic_wav()))[1].astype(np.float32)
+    assert stored.dtype == np.int16 and len(stored) == 22050
+    assert np.abs(stored.astype(np.float32)).max() < 0.9 * np.abs(plain).max()  # denoised
 
 
 def test_unported_tools(pair):
     srv = pair.servers["torch"]
     # a runTask over the websocket: a tasks_error naming the tool
-    ws = FakeWS([json.dumps({"model": "formatting", "task": "runTask",
+    ws = FakeWS([json.dumps({"model": "transcribe", "task": "runTask",
                              "data": {"inPath": "/x", "outputDirectory": "/y"}})])
     run(srv.websocket_handler(ws))
     events = [json.loads(m) for m in ws.sent]
     assert [e["key"] for e in events] == ["tasks_error"]
-    assert "'formatting' is not ported" in events[0]["data"]
+    assert "'transcribe' is not ported" in events[0]["data"]
     # an unknown key is still an unknown key
     with pytest.raises(KeyError, match="unknown model key"):
         run(srv.handle_message(json.dumps({"model": "nope", "task": "runTask", "data": {}})))
-    # no tool, so no schema
-    assert run(srv.handle_http("/toolSettingsSchema", {})) == {"schema": {}}
+    # the registry: 13 of the JAX package's 16 keys; each of the three left named
+    from xva_trainer_tpu.tools import TOOL_REGISTRY as JAX_REGISTRY
+    from xva_trainer_tpu_torch.tools import TOOL_REGISTRY, get_tool
+
+    assert set(TOOL_REGISTRY) == set(JAX_REGISTRY) - {"transcribe", "make_srt", "ass"}
+    for key in ("transcribe", "make_srt", "ass"):
+        with pytest.raises(KeyError, match=f"'{key}' is not ported"):
+            get_tool(key)
+    # the schema serves the ported tools' forms only
+    schema = run(srv.handle_http("/toolSettingsSchema", {}))["schema"]
+    assert len(schema) == 13 and not {"transcribe", "make_srt", "ass"} & set(schema)
     # the text-quality pass reports the missing transcribe tool as its error
     ds = str(pair.roots["torch"] / "datasets" / "game_voice")
 
@@ -335,6 +352,57 @@ def test_unported_tools(pair):
         loop.run_until_complete(text_quality())
     status = loop.run_until_complete(srv.handle_http("/textQualityStatus", {"path": ds}))
     assert status["running"] is False and "'transcribe' is not ported" in status["error"]
+
+
+def test_tool_settings_schema_parity(pair):
+    """``/toolSettingsSchema``: the JAX server's form of each of the 13
+    ported tools, and no other."""
+    from xva_trainer_tpu_torch.tools import TOOL_REGISTRY
+
+    out = pair.call("/toolSettingsSchema", {})
+    assert set(out["torch"]["schema"]) == set(TOOL_REGISTRY)
+    assert out["torch"]["schema"] == {k: out["jax"]["schema"][k] for k in TOOL_REGISTRY}
+
+
+def test_formatting_run_task_parity(pair):
+    """A ``formatting`` runTask over the websocket, as the UI's tools panel
+    sends it: both servers answer ``tasks_next`` and write the same files."""
+    events = {}
+    for key, srv in pair.servers.items():
+        root = pair.roots[key]
+        ws = FakeWS([json.dumps({"model": "formatting", "task": "runTask", "data": {
+            "inPath": str(root / "datasets" / "other_voice" / "wavs"),
+            "outputDirectory": str(root / "formatted"),
+            "toolSettings": {"useMP": False, "formatting_hz": 22050}}})])
+        with pair.cwd(key):
+            run(srv.websocket_handler(ws))
+        events[key] = [json.loads(m) for m in ws.sent]
+    assert events["torch"] == events["jax"] == [{"key": "tasks_next", "data": ""}]
+    files = pair.files()
+    assert files["torch"] == files["jax"]
+    assert sorted(f for f in files["torch"] if f.startswith("formatted/")) == [
+        "formatted/.progress.txt"] + [f"formatted/other_voice_{i}.wav" for i in range(3)]
+
+
+def test_speaker_search_run_task(pair):
+    """A ``speaker_search`` runTask on the port's server: the manager's one
+    encoder on the server's device ranks the corpus, the query's own clip
+    first."""
+    srv = pair.servers["torch"]
+    root = pair.roots["torch"]
+    query = root / "query"
+    query.mkdir()
+    wavs = root / "datasets" / "game_voice" / "wavs"
+    (query / "q.wav").write_bytes((wavs / "game_voice_2.wav").read_bytes())
+    ws = FakeWS([json.dumps({"model": "speaker_search", "task": "runTask", "data": {
+        "queryPath": str(query), "corpusPath": str(wavs), "outputDirectory": str(root / "ranked")}})])
+    with pair.cwd("torch"):
+        run(srv.websocket_handler(ws))
+    assert [json.loads(m)["key"] for m in ws.sent] == ["tasks_next"]
+    ranked = sorted(f for f in os.listdir(root / "ranked") if f.endswith(".wav"))
+    assert len(ranked) == 4 and ranked[0] == "00000_game_voice_2.wav"
+    enc = srv.manager.models_bank["speaker_encoder"]
+    assert next(enc.model.parameters()).device.type == "cpu"
 
 
 def test_websocket_back_doors_and_unknown_task(pair, monkeypatch):

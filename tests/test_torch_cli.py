@@ -63,11 +63,19 @@ def test_tts_from_an_output_directory(tiny_run, tmp_path):
 
 
 def test_tool_not_ported(tmp_path):
-    with pytest.raises(KeyError, match="'formatting' is not ported"):
-        cli.main(["tool", "formatting", "--in", str(tmp_path), "--out", str(tmp_path / "o"),
+    with pytest.raises(KeyError, match="'transcribe' is not ported"):
+        cli.main(["tool", "transcribe", "--in", str(tmp_path), "--out", str(tmp_path / "o"),
                   "--device", "cpu"])
     with pytest.raises(KeyError, match="unknown tool"):
         cli.main(["tool", "nope", "--in", "a", "--out", "b"])
+    # a ported tool runs on the device it is given; cuda by default, which
+    # this host has not
+    save_wav(str(tmp_path / "a.wav"), np.zeros(4410, np.float32), 44100)
+    cli.main(["tool", "formatting", "--in", str(tmp_path), "--out", str(tmp_path / "o"),
+              "--device", "cpu"])
+    assert sorted(os.listdir(tmp_path / "o")) == [".progress.txt", "a.wav"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["tool", "formatting", "--in", str(tmp_path), "--out", str(tmp_path / "o")])
 
 
 ARGVS = [

@@ -11,6 +11,10 @@ resolves it through ``resolve_device`` and raises on anything torch cannot
 use here: ``tpu`` (which the JAX server persists in the shared
 ``app_settings.json``), or ``cuda`` on a host without a card. It never
 switches to the CPU on its own.
+
+The speaker encoder is one entry of the bank (``speaker_encoder``), shared
+by the trainers and the speaker tools; the JAX manager's ``shared_cache``
+copy for the tools has no counterpart.
 """
 from __future__ import annotations
 
@@ -27,7 +31,6 @@ class ModelsManager:
         self.PROD = PROD
         self.device = device
         self.models_bank: Dict[str, Any] = {}
-        self.shared_cache: Dict[str, Any] = {}  # e.g. the speaker encoder
         self._lock = asyncio.Lock()
 
     async def init_model(self, key: str):

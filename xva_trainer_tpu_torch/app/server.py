@@ -19,9 +19,9 @@ package). What differs from the JAX server:
 - ``/exportWav`` on an output directory restores the newest
   ``xVAPitch_<n>.pt`` of the port's ``CheckpointManager``; a directory that
   holds only the JAX package's orbax checkpoints is refused;
-- the tools are not all ported (``tools.TOOL_REGISTRY``): a ``runTask``, a
-  text-quality pass or a denoised recording that needs a missing tool fails
-  with an error naming it;
+- 13 of the 16 tools are ported (``tools.TOOL_REGISTRY``): a ``runTask``
+  or a text-quality pass that needs ``transcribe``, ``make_srt`` or ``ass``
+  fails with an error naming the tool;
 - ``/stopServer`` stops a running job and makes ``serve_with_http`` close
   both servers and return; the JAX server's process ends when the
   ``SystemExit`` it raises leaves the event loop.
@@ -779,17 +779,21 @@ class AppServer:
         if not name.endswith(".wav"):
             name += ".wav"
         # optional mic noise removal against a saved profile (reference sox
-        # noisered pipe on recordings, javascript/script.js:1074-1090): it
-        # needs the noise_removal tool, which is not ported yet, so the
-        # recording is refused rather than stored undenoised
-        if self.app_settings.get("record_noise_removal") and os.path.exists(
-                os.path.join(os.getcwd(), "noise_profile.wav")):
-            from ..tools import not_ported
+        # noisered pipe on recordings, javascript/script.js:1074-1090)
+        if self.app_settings.get("record_noise_removal"):
+            prof = os.path.join(os.getcwd(), "noise_profile.wav")
+            if os.path.exists(prof):
+                import numpy as np
+                from scipy.io import wavfile as _wf
 
-            raise RuntimeError(
-                f"record_noise_removal is on and needs the noise_removal tool: "
-                f"{not_ported('noise_removal').args[0]}; turn the setting off to "
-                "store recordings as they are")
+                from ..tools.audio_tools import NoiseRemovalTool
+
+                _, noise = _wf.read(prof)
+                noise = noise.astype(np.float32) / 32767.0
+                tool = NoiseRemovalTool(device=self.manager.device)
+                y = tool._denoise(
+                    y, tool._profile(noise),
+                    float(self.app_settings.get("noise_removal_strength", 0.25)))
         wav_dir = os.path.join(dataset_path, "wavs")
         os.makedirs(wav_dir, exist_ok=True)
         save_wav(os.path.join(wav_dir, name), y)

@@ -12,8 +12,8 @@ Counterpart of ``xva_trainer_tpu/cli.py``. Every command takes ``--device``
 (``cuda`` by default; ``cpu`` runs the plain PyTorch path), where the JAX
 package picks its backend through ``JAX_PLATFORMS``; ``cuda`` on a host
 without a card raises. ``tool`` names a tool of the port's
-``TOOL_REGISTRY``, which holds none yet, and ``import-whisper`` waits for
-the transcribe tool's port.
+``TOOL_REGISTRY`` (13 of the JAX package's 16), and ``import-whisper``
+waits for the transcribe tool's port.
 """
 from __future__ import annotations
 
@@ -75,7 +75,7 @@ def cmd_tool(args):
     from .tools import get_tool
 
     # raises a KeyError naming the tool while it is not ported
-    tool = get_tool(args.tool)()
+    tool = get_tool(args.tool)(device=args.device)
     data = {"inPath": args.inp, "outputDirectory": args.out}
     if args.settings:
         data["toolSettings"] = json.loads(args.settings)

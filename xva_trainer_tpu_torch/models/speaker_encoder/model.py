@@ -7,7 +7,8 @@ sample Hamming window, hop 160, 64 HTK mels without norm) → log(x + 1e-6) →
 instance norm over time (population variance) → SE-ResNet34 [3,4,6,3] ×
 [32,64,128,256] with the reference's conv→relu→bn order → attentive
 statistics pooling → 512-d embedding. ``SpeakerEncoder.compute_embedding``
-is the mean of 10 crop embeddings, L2-normalised (:226-261).
+is the mean of 10 crop embeddings, L2-normalised (:226-261);
+``SpeakerEncoder.embed`` embeds a batch of crops.
 
 Inference only: every BatchNorm uses its running statistics. The spectrogram
 is ``torch.fft.rfft`` and a product, as the JAX package's is ``jnp.fft``: no
@@ -191,7 +192,13 @@ class SpeakerEncoder:
         if len(wav16k) < n:
             wav16k = np.pad(wav16k, (0, n - len(wav16k)))
         offsets = np.linspace(0, len(wav16k) - n, num=num_eval).astype(int)
-        crops = np.stack([wav16k[o: o + n] for o in offsets]).astype(np.float32)
-        embs = self.model(torch.from_numpy(crops).to(self.device), l2_norm=True)
-        emb = embs.float().cpu().numpy().mean(axis=0)
+        emb = self.embed(np.stack([wav16k[o: o + n] for o in offsets])).mean(axis=0)
         return emb / max(np.linalg.norm(emb), 1e-8)
+
+    @torch.no_grad()
+    def embed(self, crops: np.ndarray) -> np.ndarray:
+        """(B, T) 16 kHz crops → (B, 512) L2-normalised embeddings, one
+        batch on the device: the counterpart of the JAX wrapper's jitted
+        ``_embed``, which diarization calls on its windows' crops."""
+        x = torch.from_numpy(np.ascontiguousarray(crops, np.float32)).to(self.device)
+        return self.model(x, l2_norm=True).float().cpu().numpy()
