@@ -7,11 +7,12 @@ each kernel against its plain PyTorch version at the main paths' shapes,
 then drives the v3 serving path, the v3 data path, the v3 trainer loop, the
 v3 fine-tune with priors in other languages, the v2 FastPitch fine-tune
 with its preview and v2 inference, the v2 HiFi-GAN stage and the v2
-pipeline to both exports, the task server with a v3 and a v2 job, the 13
+pipeline to both exports, the task server with a v3 and a v2 job, the 16
 dataset tools over the server's websocket, and the v3 training step
 through the entry points a user calls, at the full width of the shipped
-"big" xVAPitch, of the speaker encoder, of ``FastPitchConfig()`` and of ``HifiganConfig()`` with
-``HifiganDiscriminator()`` (weights from a seed). Phases, one JSON line
+"big" xVAPitch, of the speaker encoder, of ``FastPitchConfig()`` and of
+``HifiganConfig()`` with ``HifiganDiscriminator()``, of whisper base and of
+wav2vec2 base (weights from a seed), and the enhancer's shipped weights. Phases, one JSON line
 each:
 
 1. ``device``: the card, as torch and ``nvidia-smi`` name it;
@@ -82,10 +83,10 @@ each:
    ``XVAPitchTrainer`` at full width with the default config but a
    checkpoint every update (AdamW, AMP, target batch 400, ``gam`` from the
    batcher's mean batch), warm-started from phase 5's reference-layout
-   ``.pt`` (effective weights held to the file's); ``train(max_steps=3)``
+   ``.pt`` (effective weights held to the file's); ``train(max_steps=2)``
    with the loss-seeding pass; a second trainer resumed from the directory,
-   bit-identical to the first, taking a 4th update; the window of
-   checkpoints (2, 3, then 3, 4); the export, loaded strictly and served by
+   bit-identical to the first, taking a 3rd update; the window of
+   checkpoints (1, 2, then 2, 3); the export, loaded strictly and served by
    ``export_wav``; two previews; one more update under the profiler. Each
    micro-step's ms by bucket, each update's seconds with and without its
    checkpoint write, the meter's frames a second, the prefetch wait, each
@@ -119,7 +120,7 @@ each:
    and the CPU (fp32) and under AMP,
    a warm start from seeded reference-layout ``g_``/``do_`` files, then
    ``train_v2_pipeline`` from a copy of the dataset (the v2 cache build,
-   two FastPitch epochs, the export, two HiFi-GAN epochs at B = 16, the
+   two FastPitch epochs, the export, one HiFi-GAN epoch at B = 16, the
    ``.hg.pt`` export), a bit-identical resume and one more epoch, three v2
    requests on the two exports, and a profiled pass (``hifigan_phase``).
    ``cache_build_shapes`` (phase 15) also times the v2 build's slots;
@@ -134,10 +135,10 @@ each:
    the exported ``.pt``, ``/exportVoice``, ``/resourceUsage``, a profiled
    request and ``/stopServer`` (``server_phase``);
 20. ``tools`` (after phase 19, on the ``data`` phase's clips): the 13
-   dataset tools of the port, each a ``runTask`` over the server's
-   websocket as the UI's tools panel sends it, with the server on the card:
-   the eight audio tools on the 256 clips (64 as 44.1 kHz stereo wavs, 32
-   as FLAC), a 10-minute recording with its ``.srt`` and 16 PCM ``.wem``
+   dataset tools of the port that run no new model, each a ``runTask`` over
+   the server's websocket as the UI's tools panel sends it, with the server
+   on the card: the eight audio tools on 128 of the clips (64 as 44.1 kHz
+   stereo wavs, 32 as FLAC), a 10-minute recording with its ``.srt`` and 16 PCM ``.wem``
    (and Vorbis ones where libvorbisenc is present); ``cluster_speakers``
    (k-means and affinity propagation), ``speaker_search``,
    ``speaker_cluster_search`` and ``diarization`` of two 3-minute
@@ -146,17 +147,29 @@ each:
    on the card; ``wer_evaluation``; a recording uploaded with noise removal
    on; then a profiled ``speaker_search``; held to the CPU (embeddings,
    partitions, the search order, diarization turns) and to the DER
-   harness's bars (``tools_phase``).
+   harness's bars (``tools_phase``);
+21. ``model_tools`` (after phase 20, on the ``data`` phase's clips): the
+   three tools that run a model and the text-quality pass, over the
+   server's websocket and HTTP: ``ass`` (the enhancer on its shipped
+   weights, held to its SI-SDR bars), ``transcribe`` with whisper base
+   (seeded, written as an OpenAI ``.pt`` and passed through
+   ``import-whisper``) and a resume, ``transcribe`` with wav2vec2 base
+   (seeded, a HuggingFace directory), ``make_srt`` on the DER harness's
+   22 s recording, ``/checkTextQuality``; then a profiled transcription;
+   held to the CPU (whisper's encoder and its tokens by one teacher-forced
+   pass, wav2vec2's logits and texts, the enhanced waveform)
+   (``model_tools_phase``).
 
 Phases 4-6 are the serving path, phase 13's path the data path, phase 14's
-seeding pass and four updates the loop path, phase 16's path from
+seeding pass and three updates the loop path, phase 16's path from
 ``preprocess_audio`` to the French request the multilingual path, phase
 17's path from the cache build to the last v2 request the fastpitch path,
 phase 18's from ``train_v2_pipeline`` to its last v2 request the hifigan
 path, phase 19's from its first ``startTraining`` to ``/stopServer`` the
 server path, phase 20's from its first ``runTask`` to the uploaded
-recording the tools path (which launches neither kernel: no tool computes
-an STFT mel or an alignment), and phase 12's timed steps the training
+recording the tools path and phase 21's from ``ass`` to the end of
+``/checkTextQuality`` the model_tools path (which launch neither kernel: no
+tool computes an STFT mel or an alignment), and phase 12's timed steps the training
 path: the launch counts are set to 0 just before each and read just after
 it. Every comparison runs with TF32 off.
 Then come the line of kernels, the card's name and power limit, and last
@@ -446,8 +459,12 @@ def profiled(fn, named=()):
         wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         prof.stop()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    # the trace's device events read as kineto recorded them: the same
+    # kernels, names and intervals as ``prof.events()``, without building
+    # its tree of host events (slow for a trace of many thousand kernels)
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3) for e in events)
     if not spans:
         return out, {"wall_ms": wall_ms, "device": "not measured (the trace holds no kernel)"}
     busy_us, end = 0.0, float("-inf")
@@ -456,8 +473,8 @@ def profiled(fn, named=()):
         end = max(end, b)
     by_name = {}
     for e in events:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
+        t, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (t + (e.end_ns() - e.start_ns()) / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     picked = {s: [sum(t for k, (t, _) in by_name.items() if s in k) / 1e3,
                   sum(n for k, (_, n) in by_name.items() if s in k)] for s in named}
@@ -1265,7 +1282,7 @@ def timed_prefetcher(base, waits: list, tag=lambda item: None):
     return TimedPrefetcher
 
 
-LOOP_UPDATES = 3  # updates of the first trainer; the resumed one takes one more
+LOOP_UPDATES = 2  # updates of the first trainer; the resumed one takes one more
 FULL_PARAMS = (82_995_624, 46_747_132)  # XVAPitchConfig() and VitsDiscriminator()
 
 
@@ -1278,12 +1295,12 @@ def train_loop_phase(cfg, dev, smi: str, data: dict, base_ckpt: str, work: str):
        ``save_step=1``): its ``gam`` from the batcher's mean batch;
     2. ``setup(resume=False, pretrained_ckpt=<phase 5's reference .pt>)``,
        the generator's effective weights held to the file's;
-    3. ``train(max_steps=3)``, the loss-seeding pass first: every loss
-       finite, a loss for every item, the window of checkpoints at 2 and 3,
-       ``graphs.json`` and ``training.log`` written;
+    3. ``train(max_steps=LOOP_UPDATES)`` (2), the loss-seeding pass first:
+       every loss finite, a loss for every item, the window of checkpoints
+       at 1 and 2, ``graphs.json`` and ``training.log`` written;
     4. a second trainer resumed from the directory, bit-identical to the
-       first (parameters, both optimisers, host state), takes a 4th update
-       and rolls the window to 3 and 4; the kernels' launches over 1-4 are
+       first (parameters, both optimisers, host state), takes a 3rd update
+       and rolls the window to 2 and 3; the kernels' launches over 1-3 are
        the ``loop`` path, 2 ``fused_stft`` and 1 ``mas`` a micro-step and a
        seeding batch;
     5. ``export`` served by ``serve.export_wav``, loaded strictly;
@@ -1361,7 +1378,7 @@ def train_loop_phase(cfg, dev, smi: str, data: dict, base_ckpt: str, work: str):
               f"train_loop: warm start's effective weights off the file's by {warm_err}")
         instrument(tr)
 
-        # ---- the loop path: the seeding pass and 3 updates, then the resume's 4th ----
+        # ---- the loop path: the seeding pass and LOOP_UPDATES updates, then the resume's ----
         _cuda.reset_launch_counts()
         t0 = time.perf_counter()
         result = tr.train(max_steps=LOOP_UPDATES)
@@ -1371,8 +1388,9 @@ def train_loop_phase(cfg, dev, smi: str, data: dict, base_ckpt: str, work: str):
         files = sorted(f for f in os.listdir(out) if f.startswith("xVAPitch_"))
         check(result["training_iters"] == LOOP_UPDATES and micro_first == LOOP_UPDATES * tr.gam
               and len(tr.loss_sampling) == len(data["cache"].items)
-              and files == ["xVAPitch_2.json", "xVAPitch_2.pt", "xVAPitch_3.json",
-                            "xVAPitch_3.pt"]
+              and files == [f"xVAPitch_{LOOP_UPDATES - 1}.json",
+                            f"xVAPitch_{LOOP_UPDATES - 1}.pt", f"xVAPitch_{LOOP_UPDATES}.json",
+                            f"xVAPitch_{LOOP_UPDATES}.pt"]
               and os.path.exists(os.path.join(out, "graphs.json"))
               and os.path.exists(os.path.join(out, "training.log")),
               f"train_loop: {result}, {micro_first} micro-steps, {len(tr.loss_sampling)} items "
@@ -1409,7 +1427,7 @@ def train_loop_phase(cfg, dev, smi: str, data: dict, base_ckpt: str, work: str):
         micro = len(steps)
         files = sorted(f for f in os.listdir(out) if f.endswith(".pt"))
         check(back.training_iters == LOOP_UPDATES + 1 and micro == (LOOP_UPDATES + 1) * back.gam
-              and files == ["xVAPitch_3.pt", "xVAPitch_4.pt"],
+              and files == [f"xVAPitch_{LOOP_UPDATES}.pt", f"xVAPitch_{LOOP_UPDATES + 1}.pt"],
               f"train_loop: the resumed trainer at {back.training_iters} updates, {micro} "
               f"micro-steps, files {files}")
         want = {"fused_stft": 2 * (micro + seed_batches), "mas": micro + seed_batches}
@@ -1502,7 +1520,7 @@ def train_loop_phase(cfg, dev, smi: str, data: dict, base_ckpt: str, work: str):
                         "seconds_without_checkpoint": wall - saves[i]["seconds"],
                         "mel_frames": frames,
                         "frames_per_s_without_checkpoint": frames / (wall - saves[i]["seconds"])})
-    meter = meter_first + back.meter.history[:1]  # the 4 updates, each with its checkpoint
+    meter = meter_first + back.meter.history[:1]  # the updates, each with its checkpoint
     record = {
         "gpu": smi, "config": "XVAPitchConfig() + VitsDiscriminator(), seeded, warm-started",
         "params": {"generator": n_g, "discriminator": n_d}, "items": len(data["cache"].items),
@@ -2559,6 +2577,7 @@ def reference_effective_weights(sd: dict) -> dict:
 # predicts the card's: scripts/probe_gan_fp32_noise.py measures how far six
 # fp32 implementations land from the float64 step (PERF.md §6). Each
 # model's whole update is also held in the L2 norm.
+PIPE_HIFI_EPOCHS = 1  # HiFi-GAN epochs of the hifigan phase's pipeline; the resume adds one
 GAN_WEIGHT_NOISE = 2.0
 GAN_FP32_JUMPS = 8.0
 GAN_UPDATE_L2 = 1e-3
@@ -2676,7 +2695,7 @@ def hifigan_phase(dev, smi: str, work: str, ds: str, gen_cfg=None, fp_cfg=None,
        from the file;
     4. the path (launch counts set to 0 just before it): ``train_v2_pipeline``
        on a copy of ``ds`` without its cache (batch 32, 2 FastPitch epochs,
-       2 HiFi-GAN epochs): the v2 cache build, FastPitch stage 1 and its
+       ``PIPE_HIFI_EPOCHS`` (1) HiFi-GAN epoch): the v2 cache build, FastPitch stage 1 and its
        export, the HiFi-GAN trainer built at the hand-off (B = 16, 60 steps
        an epoch, a checkpoint each epoch), the ``.hg.pt`` export; each
        HiFi-GAN step timed (synchronised) with its launches;
@@ -2908,7 +2927,8 @@ def hifigan_phase(dev, smi: str, work: str, ds: str, gen_cfg=None, fp_cfg=None,
         t0 = time.perf_counter()
         res = train_v2_pipeline(
             PipelineConfig(dataset_path=pipe_ds, output_path=out_dir, batch_size=32,
-                           max_fp_epochs=2, max_hifi_epochs=2, voice_name="smoke"),
+                           max_fp_epochs=2, max_hifi_epochs=PIPE_HIFI_EPOCHS,
+                           voice_name="smoke"),
             fp_cfg, gen_cfg, on_trainer=on_trainer, device=dev)
         sync()
         pipe_s = time.perf_counter() - t0
@@ -2926,19 +2946,22 @@ def hifigan_phase(dev, smi: str, work: str, ds: str, gen_cfg=None, fp_cfg=None,
                          if r.kind.startswith("wn_") else {r.torch_key})
         loaded = Generator(gen_cfg)
         load_hifigan_generator(hg_path, loaded)
-        want_lr = float(np.float32(2e-4 * 0.999 ** 2))
+        want_lr = float(np.float32(2e-4 * 0.999 ** PIPE_HIFI_EPOCHS))
         n_epoch = len(hifi.sampler)
         check(os.path.exists(fp_path) and os.path.exists(hg_path) and list(hg) == ["generator"]
               and set(hg["generator"]) == ref_keys
               and all(v.dtype == torch.float32 for v in hg["generator"].values()),
               f"hifigan: the exports {res['exports']}, .hg.pt keys {list(hg)[:3]}")
-        check(len(pipe_steps) == 2 * n_epoch and hifi.total_iter == 2 * n_epoch
-              and hifi.epoch == 2 and all(np.isfinite(s["mel_l1"]) for s in pipe_steps)
+        check(len(pipe_steps) == PIPE_HIFI_EPOCHS * n_epoch
+              and hifi.total_iter == PIPE_HIFI_EPOCHS * n_epoch
+              and hifi.epoch == PIPE_HIFI_EPOCHS
+              and all(np.isfinite(s["mel_l1"]) for s in pipe_steps)
               and hifi.g_opt.lr == hifi.d_opt.lr == want_lr
               and all(s["launches"]["fused_stft"] == 2 * kernel_launch
                       and s["launches"]["mas"] == 0 for s in pipe_steps),
               f"hifigan: the pipeline's HiFi-GAN stage: {len(pipe_steps)} steps of "
-              f"{2 * n_epoch}, epoch {hifi.epoch}, lr {hifi.g_opt.lr} (want {want_lr}), "
+              f"{PIPE_HIFI_EPOCHS * n_epoch}, epoch {hifi.epoch}, lr {hifi.g_opt.lr} "
+              f"(want {want_lr}), "
               f"launches {[s['launches'] for s in pipe_steps[:3]]}, mel L1 "
               f"{[s['mel_l1'] for s in pipe_steps][:8]}")
 
@@ -2967,7 +2990,7 @@ def hifigan_phase(dev, smi: str, work: str, ds: str, gen_cfg=None, fp_cfg=None,
         resumed.train(max_epochs=1)
         sync()
         more = [s for s in steps if s["run"] == "resumed"]
-        check(len(more) == n_epoch and resumed.total_iter == 3 * n_epoch
+        check(len(more) == n_epoch and resumed.total_iter == (PIPE_HIFI_EPOCHS + 1) * n_epoch
               and all(s["launches"]["fused_stft"] == 2 * kernel_launch
                       and s["launches"]["mas"] == 0 and np.isfinite(s["mel_l1"]) for s in more),
               f"hifigan: the resumed epoch: {len(more)} steps, {resumed.total_iter} in all")
@@ -3507,7 +3530,8 @@ def server_phase(dev, smi: str, work: str, data_ds: str, base_ckpt: str | None, 
             client.close()
 
 
-TOOLS_WAV44 = 64      # of the data cell's clips, rewritten as 44.1 kHz stereo wavs
+TOOLS_CLIPS = 128     # of the data cell's 256 clips (every other one), the tools' inputs
+TOOLS_WAV44 = 64      # of those, rewritten as 44.1 kHz stereo wavs
 TOOLS_FLAC = 32       # and as 22.05 kHz stereo FLAC
 TOOLS_SRT_S = 600.0   # the srt_split recording
 TOOLS_WEM = 16        # PCM .wem files (and 4 Vorbis ones where libvorbisenc is present)
@@ -3666,17 +3690,116 @@ def labels_turns(path: str) -> list:
     return turns
 
 
-def tools_phase(dev, smi: str, work: str, data_ds: str, n_wav44: int = TOOLS_WAV44,
-                n_flac: int = TOOLS_FLAC, srt_s: float = TOOLS_SRT_S, n_wem: int = TOOLS_WEM,
-                diar_s: float = TOOLS_DIAR_S, n_check: int = TOOLS_CHECK,
-                profile_corpus: int = 64) -> tuple:
-    """Phase 20, ``tools``: the 13 dataset tools of the port as the UI's
-    tools panel drives them, each a ``runTask`` over the server's websocket
-    (``serve_with_http`` on a thread, the server on ``dev``), on the
+class ToolServer:
+    """The port's task server on ``dev`` as the tools phases drive it:
+    ``AppServer.serve_with_http`` on a thread, on two free localhost ports,
+    with ``root`` as its working directory (its settings, noise profile and
+    log live there); ``/setDevice`` to ``dev``; a websocket client. A
+    context manager: on exit ``/stopServer``, the thread joined, the client
+    closed, the working directory restored, and (when no exception is on its
+    way) a check that the server thread ended without an error."""
+
+    def __init__(self, dev, root: str, tag: str):
+        self.dev, self.root, self.tag = dev, root, tag
+        self.errors: list = []
+        self.client = None
+
+    def __enter__(self):
+        import asyncio
+
+        from xva_trainer_tpu_torch.app.server import AppServer, make_logger
+
+        self.http_port = free_port()
+        self.ws_port = free_port()
+        while self.ws_port == self.http_port:
+            self.ws_port = free_port()
+        self.old_cwd = os.getcwd()
+        os.chdir(self.root)
+        self.app = AppServer(self.http_port, self.ws_port,
+                             logger=make_logger(os.path.join(self.root, "server.log")),
+                             device=str(self.dev))
+
+        def serve():
+            try:
+                asyncio.run(self.app.serve_with_http())
+            except BaseException as e:  # noqa: BLE001 — reported by the phase
+                self.errors.append(repr(e))
+
+        self.thread = threading.Thread(target=serve, name=self.tag + "-server", daemon=True)
+        try:
+            self.thread.start()
+            end = time.perf_counter() + 60
+            while True:
+                try:
+                    if http_call(self.http_port, "/checkReady", timeout=5)[1] == {"ready": True}:
+                        break
+                except OSError:
+                    pass
+                check(time.perf_counter() < end and not self.errors,
+                      f"{self.tag}: no server {self.errors}")
+                time.sleep(0.05)
+            self.http("/setDevice", {"device": str(self.dev)})
+            self.client = WsClient(self.ws_port)
+            self.client.start_reader()
+        except BaseException:
+            self.__exit__(None, None, None)
+            raise
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        os.chdir(self.old_cwd)
+        if self.thread.is_alive():
+            try:
+                http_call(self.http_port, "/stopServer", timeout=30)
+            except OSError:
+                pass
+            self.thread.join(timeout=60)
+        if self.client is not None:
+            self.client.close()
+        if exc_type is None:
+            check(not self.thread.is_alive() and not self.errors,
+                  f"{self.tag}: the server {self.errors}")
+        return False
+
+    def http(self, path: str, body=None) -> dict:
+        """A POST that must answer 200: its reply."""
+        status, out, _ = http_call(self.http_port, path, body)
+        check(status == 200, f"{self.tag}: {path} answered {status}: {str(out)[-2000:]}")
+        return out
+
+    def run_tool(self, model: str, data: dict, timeout: float = 900):
+        """One runTask: its seconds to tasks_next (a tasks_error fails) and
+        the task_info messages before it."""
+        t_send = time.perf_counter()
+        self.client.send_json(model=model, task="runTask", data=data)
+        info = []
+        while True:
+            try:
+                _, msg = self.client.events.get(
+                    timeout=max(0.01, t_send + timeout - time.perf_counter()))
+            except queue.Empty:
+                raise AssertionError(
+                    f"{self.tag}: no tasks_next from {model} in {timeout} s") from None
+            ev = json.loads(msg)
+            check(ev.get("key") != "tasks_error",
+                  f"{self.tag}: {model} sent tasks_error: {str(ev.get('data'))[-3000:]}")
+            if ev.get("key") == "tasks_next":
+                return time.perf_counter() - t_send, info
+            info.append(ev.get("data"))
+
+
+def tools_phase(dev, smi: str, work: str, data_ds: str, n_clips: int = TOOLS_CLIPS,
+                n_wav44: int = TOOLS_WAV44, n_flac: int = TOOLS_FLAC, srt_s: float = TOOLS_SRT_S,
+                n_wem: int = TOOLS_WEM, diar_s: float = TOOLS_DIAR_S,
+                n_check: int = TOOLS_CHECK, profile_corpus: int = 64) -> tuple:
+    """Phase 20, ``tools``: the 13 dataset tools of the port that run no new
+    model, as the UI's tools panel drives them, each a ``runTask`` over the
+    server's websocket (``ToolServer``, the server on ``dev``), on the
     ``data`` phase's dataset ``data_ds`` (256 clips, 1 153 s):
 
-    1. set-up: a copy of the dataset with ``n_wav44`` clips as 44.1 kHz
-       stereo wavs and ``n_flac`` as 22.05 kHz stereo FLAC; a recording of
+    1. set-up: a copy of ``n_clips`` of the dataset's clips (every other
+       one) with ``n_wav44`` of them as 44.1 kHz stereo wavs and ``n_flac``
+       as 22.05 kHz stereo FLAC; a recording of
        ``srt_s`` seconds of the clips with its ``.srt``; ``n_wem`` PCM
        ``.wem`` files and, where libvorbisenc is present, 4 Vorbis ones
        (inline and external codebooks, ``tests/torch_wem_fixture.py``);
@@ -3713,7 +3836,7 @@ def tools_phase(dev, smi: str, work: str, data_ds: str, n_wav44: int = TOOLS_WAV
     from formant_speech import build_conversation
 
     from xva_trainer_tpu_torch import native
-    from xva_trainer_tpu_torch.app.server import AppServer, make_logger
+    from xva_trainer_tpu_torch.app.server import AppServer
     from xva_trainer_tpu_torch.data.audio_io import load_wav, resample, save_wav
     from xva_trainer_tpu_torch.models.speaker_encoder import SpeakerEncoder
     from xva_trainer_tpu_torch.native import vorbis
@@ -3738,7 +3861,7 @@ def tools_phase(dev, smi: str, work: str, data_ds: str, n_wav44: int = TOOLS_WAV
     clips = os.path.join(root, "clips")
     os.makedirs(clips)
     flac_pcm, names, audio_s = {}, [], 0.0
-    for i, (name, _) in enumerate(rows):
+    for i, (name, _) in enumerate(rows[:: max(1, len(rows) // n_clips)][:n_clips]):
         sr, pcm = wavfile.read(os.path.join(data_ds, "wavs", name))
         y = pcm.astype(np.float32) / 32768.0
         audio_s += len(y) / sr
@@ -3867,63 +3990,8 @@ def tools_phase(dev, smi: str, work: str, data_ds: str, n_wav44: int = TOOLS_WAV
     print(f"tools: libvorbis {rec['libvorbis']}", flush=True)
 
     # ---- the server ----
-    http_port = free_port()
-    ws_port = free_port()
-    while ws_port == http_port:
-        ws_port = free_port()
-    old_cwd = os.getcwd()
-    os.chdir(root)  # the settings, noise_profile.wav and the log live in the working directory
-    app = AppServer(http_port, ws_port, logger=make_logger(os.path.join(root, "server.log")),
-                    device=str(dev))
-    srv_errors: list = []
-
-    def serve():
-        try:
-            asyncio.run(app.serve_with_http())
-        except BaseException as e:  # noqa: BLE001 — reported by the phase
-            srv_errors.append(repr(e))
-
-    srv = threading.Thread(target=serve, name="tools-server", daemon=True)
-    client = None
-
-    def http(path, body=None):
-        status, out, _ = http_call(http_port, path, body)
-        check(status == 200, f"tools: {path} answered {status}: {str(out)[-2000:]}")
-        return out
-
-    def run_tool(model, data, timeout=900):
-        """One runTask; its seconds to tasks_next (a tasks_error fails) and
-        the task_info messages before it."""
-        t_send = time.perf_counter()
-        client.send_json(model=model, task="runTask", data=data)
-        info = []
-        while True:
-            try:
-                _, msg = client.events.get(
-                    timeout=max(0.01, t_send + timeout - time.perf_counter()))
-            except queue.Empty:
-                raise AssertionError(f"tools: no tasks_next from {model} in {timeout} s") from None
-            ev = json.loads(msg)
-            check(ev.get("key") != "tasks_error",
-                  f"tools: {model} sent tasks_error: {str(ev.get('data'))[-3000:]}")
-            if ev.get("key") == "tasks_next":
-                return time.perf_counter() - t_send, info
-            info.append(ev.get("data"))
-
-    try:
-        srv.start()
-        end = time.perf_counter() + 60
-        while True:
-            try:
-                if http_call(http_port, "/checkReady", timeout=5)[1] == {"ready": True}:
-                    break
-            except OSError:
-                pass
-            check(time.perf_counter() < end and not srv_errors, f"tools: no server {srv_errors}")
-            time.sleep(0.05)
-        http("/setDevice", {"device": str(dev)})
-        client = WsClient(ws_port)
-        client.start_reader()
+    with ToolServer(dev, root, "tools") as ts:
+        http, run_tool, app = ts.http, ts.run_tool, ts.app
         enc = app.manager.sync_init_model("speaker_encoder")  # the server's one encoder
         on_dev = {p.device.type for p in enc.model.parameters()}
         check(on_dev == {dev.type}, f"tools: the encoder's parameters on {on_dev}")
@@ -3940,106 +4008,98 @@ def tools_phase(dev, smi: str, work: str, data_ds: str, n_wav44: int = TOOLS_WAV
             return out
 
         enc.embed = timed_embed
-        mem_start_gb = None
-        if on_card:  # earlier phases' tensors still held count in the peak; the rise is the path's
-            torch.cuda.reset_peak_memory_stats()
-            mem_start_gb = torch.cuda.memory_allocated() / 1e9
-        out = {k: os.path.join(root, "out_" + k) for k in (
-            "formatting", "normalize", "silence_cut", "silence_split", "cut_padding",
-            "noise_removal", "srt_split", "wem2ogg", "kmeans", "affinity", "ranked")}
-        wem_req = {"inPath": wems, "outputDirectory": out["wem2ogg"], "toWav": True}
-        if codebooks:
-            wem_req["codebooksPath"] = codebooks
-        requests = [
-            ("formatting", "formatting", {"inPath": clips, "outputDirectory": out["formatting"],
-                                          "toolSettings": {"useMP": False,
-                                                           "formatting_hz": 22050}}),
-            ("normalize", "normalize", {"inPath": clips, "outputDirectory": out["normalize"]}),
-            ("silence_cut", "silence_cut", {"inPath": clips,
-                                            "outputDirectory": out["silence_cut"]}),
-            ("silence_split", "silence_split", {"inPath": clips,
-                                                "outputDirectory": out["silence_split"]}),
-            ("cut_padding", "cut_padding", {"inPath": clips,
-                                            "outputDirectory": out["cut_padding"]}),
-            ("noise_removal", "noise_removal", {"inPath": clips, "noiseProfile": noise_path,
-                                                "outputDirectory": out["noise_removal"]}),
-            ("srt_split", "srt_split", {"inPath": os.path.join(long_dir, "recording.wav"),
-                                        "srtPath": os.path.join(long_dir, "recording.srt"),
-                                        "outputDirectory": out["srt_split"]}),
-            ("wem2ogg", "wem2ogg", wem_req),
-            ("cluster_kmeans", "cluster_speakers", {"inPath": clips,
-                                                    "outputDirectory": out["kmeans"],
-                                                    "toolSettings": {"numClusters": 4}}),
-            ("cluster_affinity", "cluster_speakers", {"inPath": clips,
-                                                      "outputDirectory": out["affinity"],
-                                                      "toolSettings": {"numClusters": 0}}),
-            ("speaker_search", "speaker_search", {"queryPath": query, "corpusPath": clips,
-                                                  "outputDirectory": out["ranked"]}),
-            ("speaker_cluster_search", "speaker_cluster_search", {
-                "queryPath": query, "corpusPath": out["kmeans"]}),
-            ("diarization", "diarization", {"inPath": diar, "toolSettings": {
-                "outputAudacityLabels": True}}),
-            ("wer_evaluation", "wer_evaluation", {
-                "userMetadata": meta, "asrMetadata": asr_csv,
-                "outputFile": os.path.join(root, "wer_report.txt")}),
-        ]
+        try:
+            mem_start_gb = None
+            if on_card:  # earlier phases' tensors still held count in the peak; the rise is the path's
+                torch.cuda.reset_peak_memory_stats()
+                mem_start_gb = torch.cuda.memory_allocated() / 1e9
+            out = {k: os.path.join(root, "out_" + k) for k in (
+                "formatting", "normalize", "silence_cut", "silence_split", "cut_padding",
+                "noise_removal", "srt_split", "wem2ogg", "kmeans", "affinity", "ranked")}
+            wem_req = {"inPath": wems, "outputDirectory": out["wem2ogg"], "toWav": True}
+            if codebooks:
+                wem_req["codebooksPath"] = codebooks
+            requests = [
+                ("formatting", "formatting", {"inPath": clips,
+                                              "outputDirectory": out["formatting"],
+                                              "toolSettings": {"useMP": False,
+                                                               "formatting_hz": 22050}}),
+                ("normalize", "normalize", {"inPath": clips,
+                                            "outputDirectory": out["normalize"]}),
+                ("silence_cut", "silence_cut", {"inPath": clips,
+                                                "outputDirectory": out["silence_cut"]}),
+                ("silence_split", "silence_split", {"inPath": clips,
+                                                    "outputDirectory": out["silence_split"]}),
+                ("cut_padding", "cut_padding", {"inPath": clips,
+                                                "outputDirectory": out["cut_padding"]}),
+                ("noise_removal", "noise_removal", {"inPath": clips, "noiseProfile": noise_path,
+                                                    "outputDirectory": out["noise_removal"]}),
+                ("srt_split", "srt_split", {"inPath": os.path.join(long_dir, "recording.wav"),
+                                            "srtPath": os.path.join(long_dir, "recording.srt"),
+                                            "outputDirectory": out["srt_split"]}),
+                ("wem2ogg", "wem2ogg", wem_req),
+                ("cluster_kmeans", "cluster_speakers", {"inPath": clips,
+                                                        "outputDirectory": out["kmeans"],
+                                                        "toolSettings": {"numClusters": 4}}),
+                ("cluster_affinity", "cluster_speakers", {"inPath": clips,
+                                                          "outputDirectory": out["affinity"],
+                                                          "toolSettings": {"numClusters": 0}}),
+                ("speaker_search", "speaker_search", {"queryPath": query, "corpusPath": clips,
+                                                      "outputDirectory": out["ranked"]}),
+                ("speaker_cluster_search", "speaker_cluster_search", {
+                    "queryPath": query, "corpusPath": out["kmeans"]}),
+                ("diarization", "diarization", {"inPath": diar, "toolSettings": {
+                    "outputAudacityLabels": True}}),
+                ("wer_evaluation", "wer_evaluation", {
+                    "userMetadata": meta, "asrMetadata": asr_csv,
+                    "outputFile": os.path.join(root, "wer_report.txt")}),
+            ]
 
-        # ---- 2. the tools path: the counts are set to 0 just before it ----
-        _cuda.reset_launch_counts()
-        t_path = time.perf_counter()
-        tools: dict = {}
-        for label, model, data in requests:
-            e0 = dict(emb)
-            sec, info = run_tool(model, data)
-            tools[label] = {"seconds": sec, "embed_s": emb["s"] - e0["s"],
-                            "embedded_crops": emb["crops"] - e0["crops"],
-                            "embed_calls": emb["calls"] - e0["calls"]}
-            if info:
-                tools[label]["task_info"] = [str(m)[:300] for m in info]
-        # a mic recording with noise removal on, uploaded as the UI sends it
-        t1 = time.perf_counter()
-        http("/appSettings", {"set": {"record_noise_removal": True,
-                                      "noise_removal_strength": 0.3}})
-        st_n, noise_reply = http_raw(http_port, "/uploadNoiseProfile", noise_wav)
-        st_r, rec_reply = http_raw(http_port, "/uploadRecording?path=" + rec_ds
-                                   + "&name=take1&text=a%20denoised%20line", mic_wav)
-        check(st_n == st_r == 200 and rec_reply.get("ok") and noise_reply.get("ok"),
-              f"tools: the uploads answered {st_n} {noise_reply}, {st_r} {rec_reply}")
-        tools["upload_recording"] = {"seconds": time.perf_counter() - t1}
-        path_s = time.perf_counter() - t_path
-        launches = dict(_cuda.LAUNCHES)  # the end of the tools path
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
-        check(launches == {k: 0 for k in _cuda.KERNELS},
-              f"tools: the path launched a fused kernel: {launches}")
+            # ---- 2. the tools path: the counts are set to 0 just before it ----
+            _cuda.reset_launch_counts()
+            t_path = time.perf_counter()
+            tools: dict = {}
+            for label, model, data in requests:
+                e0 = dict(emb)
+                sec, info = run_tool(model, data)
+                tools[label] = {"seconds": sec, "embed_s": emb["s"] - e0["s"],
+                                "embedded_crops": emb["crops"] - e0["crops"],
+                                "embed_calls": emb["calls"] - e0["calls"]}
+                if info:
+                    tools[label]["task_info"] = [str(m)[:300] for m in info]
+            # a mic recording with noise removal on, uploaded as the UI sends it
+            t1 = time.perf_counter()
+            http("/appSettings", {"set": {"record_noise_removal": True,
+                                          "noise_removal_strength": 0.3}})
+            st_n, noise_reply = http_raw(ts.http_port, "/uploadNoiseProfile", noise_wav)
+            st_r, rec_reply = http_raw(ts.http_port, "/uploadRecording?path=" + rec_ds
+                                       + "&name=take1&text=a%20denoised%20line", mic_wav)
+            check(st_n == st_r == 200 and rec_reply.get("ok") and noise_reply.get("ok"),
+                  f"tools: the uploads answered {st_n} {noise_reply}, {st_r} {rec_reply}")
+            tools["upload_recording"] = {"seconds": time.perf_counter() - t1}
+            path_s = time.perf_counter() - t_path
+            launches = dict(_cuda.LAUNCHES)  # the end of the tools path
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+            check(launches == {k: 0 for k in _cuda.KERNELS},
+                  f"tools: the path launched a fused kernel: {launches}")
 
-        # ---- 3. a profiled speaker_search ----
-        trace_dir = os.path.join(root, "trace")
-        started = http("/profileStart", {"dir": trace_dir})
-        prof_s, _ = run_tool("speaker_search", {"queryPath": query, "corpusPath": prof_corpus,
-                                                "outputDirectory": os.path.join(root, "ranked_p")})
-        stopped = http("/profileStop")
-        busy = trace_busy(trace_dir)
-        check(started["ok"] and stopped["ok"] and busy["events"].get("cpu_op", 0) > 0
-              and (busy["kernels"] > 0 or not on_card),
-              f"tools: the profiler {started} {stopped}, trace {busy}")
-        rec["profiled_speaker_search"] = dict(
-            busy, seconds=prof_s, files=len(os.listdir(query)) + profile_corpus,
-            host_share=1.0 - busy["busy_ms"] / (prof_s * 1e3))
-        shutil.rmtree(trace_dir, ignore_errors=True)
-    finally:
-        enc_cuda = app.manager.models_bank.get("speaker_encoder")
-        if enc_cuda is not None:
-            enc_cuda.__dict__.pop("embed", None)  # back to the class's method
-        os.chdir(old_cwd)
-        if srv.is_alive():
-            try:
-                http_call(http_port, "/stopServer", timeout=30)
-            except OSError:
-                pass
-            srv.join(timeout=60)
-        if client is not None:
-            client.close()
-    check(not srv.is_alive() and not srv_errors, f"tools: the server {srv_errors}")
+            # ---- 3. a profiled speaker_search ----
+            trace_dir = os.path.join(root, "trace")
+            started = http("/profileStart", {"dir": trace_dir})
+            prof_s, _ = run_tool("speaker_search", {
+                "queryPath": query, "corpusPath": prof_corpus,
+                "outputDirectory": os.path.join(root, "ranked_p")})
+            stopped = http("/profileStop")
+            busy = trace_busy(trace_dir)
+            check(started["ok"] and stopped["ok"] and busy["events"].get("cpu_op", 0) > 0
+                  and (busy["kernels"] > 0 or not on_card),
+                  f"tools: the profiler {started} {stopped}, trace {busy}")
+            rec["profiled_speaker_search"] = dict(
+                busy, seconds=prof_s, files=len(os.listdir(query)) + profile_corpus,
+                host_share=1.0 - busy["busy_ms"] / (prof_s * 1e3))
+            shutil.rmtree(trace_dir, ignore_errors=True)
+        finally:
+            enc.__dict__.pop("embed", None)  # back to the class's method
 
     # ---- 4. the checks ----
     n_in = len(names)
@@ -4210,6 +4270,439 @@ def tools_phase(dev, smi: str, work: str, data_ds: str, n_wav44: int = TOOLS_WAV
     tools["diarization"]["audio_s_per_s"] = audio_min * 60 / dz["seconds"]
     rec.update(tools=tools, counts=counts, path_seconds=path_s, launches=launches,
                peak_gb=peak_gb, allocated_at_start_gb=mem_start_gb,
+               phase_seconds=time.perf_counter() - t_phase)
+    return launches, rec
+
+
+MT_ASS = 16       # of the data cell's clips through 'ass' (with MT_PAIRS noisy pairs)
+MT_PAIRS = 3      # make_pair clips of 3 s at 5 dB, held to the enhancer's SI-SDR bars
+MT_ASR = 8        # clips transcribed with whisper and with wav2vec2
+MT_TQ = 16        # clips of the /checkTextQuality dataset
+MT_CHECK = 2      # clips held card vs CPU (whisper's encoder, wav2vec2's logits)
+ENHANCE_GAIN_DB = 6.0   # tests/test_enhance_default.py: mean SI-SDR gain over the input,
+GATE_MARGIN_DB = 2.0    # and over the spectral gate
+# facebook/wav2vec2-base-960h's character vocabulary (the CTC blank is <pad>)
+W2V_VOCAB = {c: i for i, c in enumerate(
+    ["<pad>", "<s>", "</s>", "<unk>", "|"] + list("ETAONIHSRDLUMWCFGYPBVK'XJQZ"))}
+
+
+def seeded_tiktoken(path: str, n: int, seed: int) -> None:
+    """A ``multilingual.tiktoken``-style table (one ``base64(bytes) rank`` a
+    line): the 256 single bytes, then seeded words, most with a leading
+    space."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyzéüß"))
+    lines = []
+    for i in range(n):
+        if i < 256:
+            tok = bytes([i])
+        else:
+            word = "".join(rng.choice(letters, size=int(rng.integers(1, 7))))
+            tok = ((" " if rng.random() < 0.7 else "") + word).encode()
+        lines.append(f"{base64.b64encode(tok).decode()} {i}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def seeded_wav2vec2_dir(d: str, cfg, seed: int) -> None:
+    """A HuggingFace ``Wav2Vec2ForCTC`` directory of seeded weights:
+    ``config.json``, ``pytorch_model.bin`` (HF's names, the positional conv's
+    ``weight_g``/``weight_v``) and ``vocab.json``."""
+    from xva_trainer_tpu_torch.models.wav2vec2 import Wav2Vec2Model
+
+    os.makedirs(d)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        sd = Wav2Vec2Model(cfg).state_dict()
+    torch.save(sd, os.path.join(d, "pytorch_model.bin"))
+    hf = {"model_type": "wav2vec2", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+          "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+          "intermediate_size": cfg.intermediate_size, "conv_dim": list(cfg.conv_dim),
+          "conv_stride": list(cfg.conv_stride), "conv_kernel": list(cfg.conv_kernel),
+          "num_conv_pos_embeddings": cfg.pos_conv_kernel,
+          "num_conv_pos_embedding_groups": cfg.pos_conv_groups}
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(hf, f)
+    with open(os.path.join(d, "vocab.json"), "w") as f:
+        json.dump({k: v for k, v in W2V_VOCAB.items() if v < cfg.vocab_size}, f)
+
+
+def model_tools_phase(dev, smi: str, work: str, data_ds: str, whisper_cfg=None, w2v_cfg=None,
+                      n_ass: int = MT_ASS, n_pairs: int = MT_PAIRS, n_asr: int = MT_ASR,
+                      n_tq: int = MT_TQ, n_check: int = MT_CHECK) -> tuple:
+    """Phase 21, ``model_tools``: the three tools that run a model, and the
+    text-quality pass, as the UI drives them: each a ``runTask`` (or the
+    HTTP call) to the port's task server on ``dev`` (``ToolServer``), on the
+    ``data`` phase's dataset ``data_ds``, at full width with seeded weights
+    (whisper ``WHISPER_SIZES["base"]``, ``Wav2Vec2Config()``; the enhancer on
+    its shipped weights):
+
+    1. set-up: ``n_ass`` clean clips and ``n_pairs`` noisy ``make_pair``
+       clips (3 s, 5 dB, the bars' rng 777) for ``ass``; a seeded whisper
+       ``{size}.pt`` in OpenAI's layout with ``dims`` and a seeded
+       ``multilingual.tiktoken`` beside it, passed through
+       ``import_whisper_checkpoint`` in process (``cli import-whisper``); a
+       seeded HuggingFace wav2vec2 directory; ``n_asr`` clips to transcribe;
+       the DER harness's 22 s 3-speaker recording for ``make_srt``; a
+       dataset of ``n_tq`` clips with their transcripts;
+    2. the path (launch counts set to 0 just before it): ``ass``;
+       ``transcribe`` with whisper (``whisper_lang`` "detect"), then again
+       (a resume that transcribes nothing); ``transcribe`` with wav2vec2;
+       ``make_srt`` with whisper; ``/checkTextQuality`` polled to its end
+       through ``/textQualityStatus``;
+    3. a profiled whisper transcription of one clip (``/profileStart``);
+    4. outside the path, on the card: whisper's encoder ms per 30 s window
+       and decode ms a token, wav2vec2's real-time factor, the enhancer's
+       audio seconds a second;
+    5. the checks: every file written; the enhancer's mean SI-SDR gain over
+       ``ENHANCE_GAIN_DB`` and over the spectral gate by ``GATE_MARGIN_DB``
+       on the noisy pairs (from the tool's files), one clip's enhanced
+       waveform within 1e-4 of its max abs of the CPU's; whisper's encoder
+       within 1e-3 relative of the CPU's on ``n_check`` clips, the language
+       the CPU's, and every token of the path's first transcription the
+       CPU's argmax (one teacher-forced pass) wherever the CPU's top-2
+       margin exceeds 1e-3 of the logits' scale; the resume transcribed
+       nothing; wav2vec2's logits within 1e-3 relative of the CPU's on
+       ``n_check`` clips and the texts equal; one ``.srt`` whose entries are
+       the diarization's turns; ``wer_report.txt`` with a line a clip and
+       the status's ``n_scored``; no launch of either kernel.
+
+    ``whisper_cfg``, ``w2v_cfg`` and the counts shrink the phase for a
+    rehearsal on the CPU (``dev`` the CPU). Returns the path's launch counts
+    and the record."""
+    import dataclasses
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from formant_speech import build_conversation
+
+    from xva_trainer_tpu_torch.data.audio_io import load_wav, resample, save_wav
+    from xva_trainer_tpu_torch.interop.whisper_map import import_whisper_checkpoint, load_whisper
+    from xva_trainer_tpu_torch.models.enhance import SpeechEnhancer, load_params_npz, si_sdr
+    from xva_trainer_tpu_torch.models.enhance.synth import make_pair
+    from xva_trainer_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2CTC
+    from xva_trainer_tpu_torch.models.whisper import WHISPER_SIZES, Whisper, WhisperASR
+    from xva_trainer_tpu_torch.ops import _cuda
+    from xva_trainer_tpu_torch.tools.audio_tools import format_srt, parse_srt
+    from xva_trainer_tpu_torch.tools.speaker_tools import diarize
+    from xva_trainer_tpu_torch.tools.text_tools import (SourceSeparationTool, TranscribeTool,
+                                                        default_enhancer_path)
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    whisper_cfg = whisper_cfg or WHISPER_SIZES["base"]
+    w2v_cfg = w2v_cfg or Wav2Vec2Config()
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "model_tools")
+    os.makedirs(root)
+    rec: dict = {"gpu": smi}
+
+    # ---- 1. set-up ----
+    t0 = time.perf_counter()
+    with open(os.path.join(data_ds, "metadata.csv"), encoding="utf-8") as f:
+        rows = [ln.split("|", 1) for ln in f.read().splitlines() if ln.strip()]
+    step = max(1, len(rows) // max(n_ass, n_asr, n_tq))
+    picks = rows[::step]
+
+    def copy_clips(d, items):
+        os.makedirs(d, exist_ok=True)
+        for name, _ in items:
+            shutil.copyfile(os.path.join(data_ds, "wavs", name), os.path.join(d, name))
+        return d
+
+    ass_in = copy_clips(os.path.join(root, "ass_in"), picks[:n_ass])
+    rng = np.random.default_rng(777)
+    pairs = {}
+    for i in range(n_pairs):
+        noisy, clean = make_pair(3.0, 5.0, rng)
+        save_wav(os.path.join(ass_in, f"pair{i}.wav"), noisy)
+        pairs[f"pair{i}.wav"] = clean
+    ass_audio_s = sum(len(load_wav(os.path.join(ass_in, n))[0]) for n in os.listdir(ass_in)) / SR
+    # whisper: a user's {size}.pt and tokenizer, through import-whisper
+    src = os.path.join(root, "whisper_src")
+    os.makedirs(src)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(14)
+        wsd = Whisper(whisper_cfg).state_dict()
+    n_whisper = sum(v.numel() for v in wsd.values())
+    torch.save({"dims": dataclasses.asdict(whisper_cfg), "model_state_dict": wsd},
+               os.path.join(src, "base.pt"))
+    del wsd
+    seeded_tiktoken(os.path.join(src, "multilingual.tiktoken"), 50257, seed=14)
+    t1 = time.perf_counter()
+    whisper_pt = import_whisper_checkpoint(os.path.join(src, "base.pt"),
+                                           os.path.join(root, "whisper"))
+    import_s = time.perf_counter() - t1
+    check(sorted(os.listdir(os.path.join(root, "whisper"))) == ["multilingual.tiktoken",
+                                                               "whisper.pt"],
+          f"model_tools: import-whisper wrote {os.listdir(os.path.join(root, 'whisper'))}")
+    w2v_dir = os.path.join(root, "wav2vec2")
+    seeded_wav2vec2_dir(w2v_dir, w2v_cfg, seed=15)
+    asr_in = copy_clips(os.path.join(root, "asr_in"), picks[:n_asr])
+    asr_audio_s = sum(len(load_wav(os.path.join(asr_in, n))[0]) for n in os.listdir(asr_in)) / SR
+    srt_in = os.path.join(root, "srt_in")
+    os.makedirs(srt_in)
+    case = DIAR_CASES["three_harness"]
+    talk, _ = build_conversation(case["spec"], with_breaths=True, **case["kw"])
+    save_wav(os.path.join(srt_in, "talk.wav"), talk)
+    tq_ds = os.path.join(root, "tq_voice")
+    copy_clips(os.path.join(tq_ds, "wavs"), picks[:n_tq])
+    with open(os.path.join(tq_ds, "metadata.csv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(f"{n}|{t}" for n, t in picks[:n_tq]))
+    rec.update(whisper_params=n_whisper, whisper_config=dataclasses.asdict(whisper_cfg),
+               wav2vec2_config=dataclasses.asdict(w2v_cfg), import_whisper_s=import_s,
+               ass_clips=len(os.listdir(ass_in)), ass_audio_s=ass_audio_s,
+               asr_clips=n_asr, asr_audio_s=asr_audio_s, srt_recording_s=len(talk) / SR,
+               tq_clips=n_tq, setup_s=time.perf_counter() - t0)
+
+    # every whisper decode of the path: its tokens and seconds
+    asr_log: list = []
+    plain_tt = WhisperASR.transcribe_tokens
+
+    def timed_tt(self, audio16k, lang="en"):
+        sync()
+        t = time.perf_counter()
+        out = plain_tt(self, audio16k, lang)
+        sync()
+        asr_log.append({"ids": out, "seconds": time.perf_counter() - t,
+                        "audio_s": len(audio16k) / 16000})
+        return out
+
+    out = {k: os.path.join(root, "out_" + k) for k in ("ass", "whisper", "wav2vec2", "srt",
+                                                        "profiled")}
+    WhisperASR.transcribe_tokens = timed_tt
+    try:
+        with ToolServer(dev, root, "model_tools") as ts:
+            mem_start_gb = None
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+                mem_start_gb = torch.cuda.memory_allocated() / 1e9
+            whisper_req = {"inPath": asr_in, "outputDirectory": out["whisper"],
+                           "toolSettings": {"modelPath": whisper_pt, "whisper_lang": "detect"}}
+
+            # ---- 2. the path: the counts are set to 0 just before it ----
+            _cuda.reset_launch_counts()
+            t_path = time.perf_counter()
+            tools: dict = {}
+
+            def tool(label, model, data):
+                n0 = len(asr_log)
+                sec, info = ts.run_tool(model, data)
+                tools[label] = {"seconds": sec, "whisper_decodes": len(asr_log) - n0,
+                                "whisper_s": sum(r["seconds"] for r in asr_log[n0:])}
+                if info:
+                    tools[label]["task_info"] = [str(m)[:300] for m in info]
+
+            tool("ass", "ass", {"inPath": ass_in, "outputDirectory": out["ass"]})
+            tool("transcribe_whisper", "transcribe", whisper_req)
+            with open(os.path.join(out["whisper"], "metadata.csv"), "rb") as f:
+                first_meta = f.read()
+            tool("transcribe_whisper_resume", "transcribe", whisper_req)
+            tool("transcribe_wav2vec2", "transcribe", {
+                "inPath": asr_in, "outputDirectory": out["wav2vec2"],
+                "toolSettings": {"modelPath": w2v_dir}})
+            tool("make_srt", "make_srt", {"inPath": srt_in, "outputDirectory": out["srt"],
+                                          "toolSettings": {"modelPath": whisper_pt}})
+            t1 = time.perf_counter()
+            n0 = len(asr_log)
+            started = ts.http("/checkTextQuality", {"path": tq_ds, "toolSettings": {
+                "modelPath": whisper_pt}})
+            check(started.get("started"), f"model_tools: /checkTextQuality {started}")
+            while True:
+                status = ts.http("/textQualityStatus", {"path": tq_ds})
+                if not status["running"]:
+                    break
+                check(time.perf_counter() - t1 < 900, "model_tools: /checkTextQuality hangs")
+                time.sleep(0.2)
+            tools["check_text_quality"] = {"seconds": time.perf_counter() - t1,
+                                           "whisper_decodes": len(asr_log) - n0,
+                                           "status": status}
+            path_s = time.perf_counter() - t_path
+            launches = dict(_cuda.LAUNCHES)  # the end of the model_tools path
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+            check(launches == {k: 0 for k in _cuda.KERNELS},
+                  f"model_tools: the path launched a fused kernel: {launches}")
+            path_log = list(asr_log)
+
+            # ---- 3. a profiled transcription of one clip ----
+            one = copy_clips(os.path.join(root, "one"), picks[:1])
+            trace_dir = os.path.join(root, "trace")
+            started = ts.http("/profileStart", {"dir": trace_dir})
+            prof_s, _ = ts.run_tool("transcribe", {"inPath": one,
+                                                   "outputDirectory": out["profiled"],
+                                                   "toolSettings": {"modelPath": whisper_pt}})
+            stopped = ts.http("/profileStop")
+            busy = trace_busy(trace_dir)
+            check(started["ok"] and stopped["ok"] and busy["events"].get("cpu_op", 0) > 0
+                  and (busy["kernels"] > 0 or not on_card),
+                  f"model_tools: the profiler {started} {stopped}, trace {busy}")
+            rec["profiled_transcription"] = dict(
+                busy, seconds=prof_s, host_share=1.0 - busy["busy_ms"] / (prof_s * 1e3))
+            shutil.rmtree(trace_dir, ignore_errors=True)
+            srt_enc = ts.app.manager.sync_init_model("speaker_encoder")
+    finally:
+        WhisperASR.transcribe_tokens = plain_tt
+        # the tools' cached models (each keyed by its device) go with the phase
+        TranscribeTool._asr_cache.clear()
+        SourceSeparationTool._enhancers.clear()
+
+    # ---- 4. the models on the card, outside the path ----
+    sd, wcfg = load_whisper(whisper_pt)
+    asr = WhisperASR(sd, wcfg, device=dev)
+    audios = [resample(load_wav(os.path.join(asr_in, n))[0], SR, 16000) for n, _ in
+              picks[:n_asr]]
+    from xva_trainer_tpu_torch.models.whisper import log_mel_spectrogram
+
+    t1 = time.perf_counter()
+    mels = [log_mel_spectrogram(a, wcfg.n_mels) for a in audios[:n_check]]
+    mel_ms = (time.perf_counter() - t1) * 1e3 / len(mels)
+    mel_d = torch.from_numpy(mels[0][None]).to(dev)
+    with torch.no_grad():
+        enc_ms = cuda_ms(lambda: asr.model.encode(mel_d), iters=5) if on_card else None
+        feats = asr.model.encode(mel_d)
+    st = asr.st
+    buf = torch.zeros((1, asr.max_tokens), dtype=torch.long, device=dev)
+    buf[0, :4] = torch.tensor([st.sot, st.lang_id("en"), st.transcribe, st.no_timestamps])
+    idx = asr.max_tokens // 2
+    sync()
+    t1 = time.perf_counter()
+    for _ in range(20):
+        asr._next(buf, idx, feats)
+    decode_ms = (time.perf_counter() - t1) * 1e3 / 20
+    w2v = Wav2Vec2CTC.from_hf_dir(w2v_dir, device=dev)
+    w2v.logits(audios[0])  # the first call's set-up out of the timing
+    sync()
+    t1 = time.perf_counter()
+    for a in audios:
+        w2v.logits(a)
+    sync()
+    w2v_rtf = (time.perf_counter() - t1) / (sum(len(a) for a in audios) / 16000)
+    enh = SpeechEnhancer(load_params_npz(default_enhancer_path()), device=dev)
+    y_enh = load_wav(os.path.join(ass_in, picks[0][0]))[0]
+    enh.enhance(y_enh)
+    sync()
+    t1 = time.perf_counter()
+    card_enh = enh.enhance(y_enh)
+    enh_rate = len(y_enh) / SR / (time.perf_counter() - t1)
+    whisper_ms = [r["seconds"] * 1e3 for r in path_log]
+    whisper_tokens = [len(r["ids"]) for r in path_log]
+    rec["speed"] = {
+        "whisper_encoder_ms_per_30s_window": enc_ms, "whisper_log_mel_host_ms": mel_ms,
+        "whisper_decode_ms_per_token": decode_ms, "whisper_tokens_per_s": 1e3 / decode_ms,
+        "whisper_path_decodes": len(path_log),
+        "whisper_path_tokens": {"min": min(whisper_tokens), "max": max(whisper_tokens),
+                                "full_buffer": asr.max_tokens - 4},
+        "whisper_path_ms_per_clip": {"min": min(whisper_ms), "max": max(whisper_ms),
+                                     "mean": float(np.mean(whisper_ms))},
+        "wav2vec2_rtf": w2v_rtf, "enhancer_audio_s_per_s": enh_rate,
+        "peak_gb": peak_gb, "allocated_at_start_gb": mem_start_gb}
+
+    # ---- 5. the checks ----
+    cpu = torch.device("cpu")
+    # ass: every clip written; the bars on the noisy pairs, from the tool's files
+    written = sorted(f for f in os.listdir(out["ass"]) if f.endswith(".wav"))
+    check(written == sorted(os.listdir(ass_in)), f"model_tools: ass wrote {written}")
+    gains, gate_gains = [], []
+    for name, clean in pairs.items():
+        noisy = load_wav(os.path.join(ass_in, name))[0]
+        est = load_wav(os.path.join(out["ass"], name))[0]
+        gate = SourceSeparationTool._spectral_gate(noisy)
+        L = min(len(est), len(clean), len(gate))
+
+        def sdr(y):
+            return float(si_sdr(torch.from_numpy(y[:L]), torch.from_numpy(clean[:L])))
+
+        base = sdr(noisy)
+        gains.append(sdr(est) - base)
+        gate_gains.append(sdr(gate) - base)
+    cpu_enh = SpeechEnhancer(load_params_npz(default_enhancer_path()), device=cpu).enhance(y_enh)
+    enh_err = float(np.abs(card_enh - cpu_enh).max())
+    enh_scale = float(np.abs(cpu_enh).max())
+    rec["ass"] = {"si_sdr_gain_db": gains, "gate_gain_db": gate_gains,
+                  "mean_gain_db": float(np.mean(gains)),
+                  "mean_gate_gain_db": float(np.mean(gate_gains)),
+                  "card_vs_cpu_max_abs": enh_err, "cpu_max_abs": enh_scale}
+    check(np.mean(gains) > ENHANCE_GAIN_DB
+          and np.mean(gains) > np.mean(gate_gains) + GATE_MARGIN_DB,
+          f"model_tools: the enhancer's SI-SDR gains {gains}, the gate's {gate_gains}")
+    check(enh_err <= 1e-4 * enh_scale, f"model_tools: the enhancer card vs CPU {enh_err}")
+    # whisper: the transcripts; the resume; the card against the CPU
+    with open(os.path.join(out["whisper"], "metadata.csv"), "rb") as f:
+        meta = f.read()
+    lines = meta.decode("utf-8").split("\n")
+    check(meta == first_meta and [ln.split("|")[0] for ln in lines]
+          == sorted(n for n, _ in picks[:n_asr]) and all(ln.split("|")[1] for ln in lines),
+          f"model_tools: whisper's metadata.csv {lines[:3]}")
+    check(tools["transcribe_whisper"]["whisper_decodes"] == n_asr
+          and tools["transcribe_whisper_resume"]["whisper_decodes"] == 0,
+          f"model_tools: whisper decodes {tools}")
+    cpu_asr = WhisperASR(sd, wcfg, device=cpu)
+    enc_err = []
+    for a in audios[:n_check]:
+        with torch.no_grad():
+            want = cpu_asr.encode(a).numpy()
+            got = asr.encode(a).cpu().numpy()
+        enc_err.append(float(np.abs(got - want).max() / np.abs(want).max()))
+    check(max(enc_err) <= 1e-3, f"model_tools: whisper's encoder card vs CPU {enc_err}")
+    lang_card, lang_cpu = asr.detect_language(audios[0]), cpu_asr.detect_language(audios[0])
+    first = path_log[0]["ids"]
+    prefix = [st.sot, st.lang_id(lang_card), st.transcribe, st.no_timestamps]
+    tf = torch.zeros((1, asr.max_tokens), dtype=torch.long)
+    tf[0, : len(prefix) + len(first)] = torch.tensor(prefix + first)
+    with torch.no_grad():
+        lc = cpu_asr.model.decode_logits(tf, cpu_asr.encode(audios[0]))[0, :, : st.eot + 1]
+        ld = asr.model.decode_logits(tf.to(dev), asr.encode(audios[0]))[0, :, : st.eot + 1]
+    rows_cpu = lc[len(prefix) - 1: len(prefix) - 1 + len(first)]
+    tol = 1e-3 * float(rows_cpu.abs().max())
+    top2 = rows_cpu.topk(2, dim=-1).values
+    held = (top2[:, 0] - top2[:, 1]) > tol
+    argmax = rows_cpu.argmax(dim=-1)
+    wrong = [i for i in range(len(first)) if held[i] and int(argmax[i]) != first[i]]
+    rec["whisper"] = {
+        "encoder_rel_err": enc_err, "language_card": lang_card, "language_cpu": lang_cpu,
+        "first_clip_tokens": len(first), "steps_held": int(held.sum()),
+        "steps_under_margin": int((~held).sum()), "margin_tol": tol,
+        "teacher_forced_logits_max_abs_err": float((ld.cpu() - lc).abs().max()),
+        "tokens_not_cpu_argmax": wrong,
+        "note": "seeded weights never emit eot: every clip decodes the full buffer (worst case)"}
+    check(lang_card == lang_cpu and not wrong,
+          f"model_tools: whisper card vs CPU: language {lang_card}/{lang_cpu}, tokens {wrong}")
+    # wav2vec2: the card's logits and texts against the CPU's
+    w2v_cpu = Wav2Vec2CTC.from_hf_dir(w2v_dir, device=cpu)
+    with open(os.path.join(out["wav2vec2"], "metadata.csv"), encoding="utf-8") as f:
+        w2v_rows = dict(ln.split("|", 1) for ln in f.read().split("\n"))
+    w2v_err = []
+    for (name, _), a in zip(picks[:n_check], audios):
+        want = w2v_cpu.logits(a)
+        w2v_err.append(float(np.abs(w2v.logits(a) - want).max() / np.abs(want).max()))
+        check(w2v_rows[name] == w2v_cpu.transcribe(a),
+              f"model_tools: wav2vec2's text of {name} on the card {w2v_rows[name]!r}")
+    check(len(w2v_rows) == n_asr and max(w2v_err) <= 1e-3,
+          f"model_tools: wav2vec2 card vs CPU {w2v_err}, {len(w2v_rows)} rows")
+    rec["wav2vec2"] = {"logits_rel_err": w2v_err, "texts_equal": n_check,
+                       "example": w2v_rows[picks[0][0]][:80]}
+    # make_srt: the diarization's turns, each with its transcript
+    with open(os.path.join(out["srt"], "talk.srt"), encoding="utf-8") as f:
+        entries = parse_srt(f.read())
+    turns = diarize(talk, SR, srt_enc)
+    want = parse_srt(format_srt([dict(t, text="-") for t in turns]))  # times to the ms
+    check([(e["start"], e["end"]) for e in entries] == [(e["start"], e["end"]) for e in want]
+          and all(e["text"] and not e["text"].startswith("[speaker_") for e in entries),
+          f"model_tools: make_srt entries {entries[:3]} for turns {turns[:3]}")
+    ms = tools["make_srt"]
+    rec["make_srt"] = {"entries": len(entries), "speakers": len({t["speaker"] for t in turns}),
+                       "asr_s": ms["whisper_s"], "diarization_and_io_s": ms["seconds"]
+                       - ms["whisper_s"]}
+    # the text-quality pass
+    with open(os.path.join(tq_ds, "wer_report.txt"), encoding="utf-8") as f:
+        report = f.read().splitlines()
+    status = tools["check_text_quality"]["status"]
+    check(len(report) == n_tq and status.get("n_scored") == n_tq and "error" not in status,
+          f"model_tools: the WER report has {len(report)} lines, status {status}")
+    audio_of = {"ass": ass_audio_s, "transcribe_whisper": asr_audio_s,
+                "transcribe_wav2vec2": asr_audio_s, "make_srt": len(talk) / SR}
+    for label, s in audio_of.items():
+        tools[label]["audio_s_per_s"] = s / tools[label]["seconds"]
+    rec.update(tools=tools, path_seconds=path_s, launches=launches,
                phase_seconds=time.perf_counter() - t_phase)
     return launches, rec
 
@@ -4616,6 +5109,9 @@ def main() -> int:
         # the dataset tools over the server's websocket, on the data phase's clips
         tools_launches, tools_record = tools_phase(dev, smi, data_work, data_ctx["dataset"])
         emit("tools", **tools_record)
+        # the three model tools and the text-quality pass, on the same clips
+        mt_launches, mt_record = model_tools_phase(dev, smi, data_work, data_ctx["dataset"])
+        emit("model_tools", **mt_record)
         # the least time for the v2 build's launches (mel only): each group's
         # bound, summed
         fp_build = fp_record["cache_build"]
@@ -4675,7 +5171,8 @@ def main() -> int:
     train_launches, train = train_phases(cfg_m, dev)
     by_path = {"serve": launches, "data": data_launches, "loop": loop_launches,
                "multilingual": ml_launches, "fastpitch": fp_launches, "hifigan": hg_launches,
-               "server": srv_launches, "tools": tools_launches, "train": train_launches}
+               "server": srv_launches, "tools": tools_launches, "model_tools": mt_launches,
+               "train": train_launches}
 
     kernels = [{
         "name": "fused_stft", "route": "cuda",

@@ -6,7 +6,7 @@ working directory (the settings and queue files live there); the port's is
 set to the CPU with ``/setDevice``. Each endpoint's JSON replies (paths
 written relative to the tree's root) and the files it leaves must be equal.
 Then the websocket protocol and the queue, the device rules (recordings,
-unported tools, ``/setDevice "tpu"``), and the UI page."""
+the tool registry, ``/setDevice "tpu"``), and the UI page."""
 import asyncio
 import io
 import json
@@ -317,46 +317,68 @@ def test_save_recording_with_noise_removal_refused(pair):
     assert np.abs(stored.astype(np.float32)).max() < 0.9 * np.abs(plain).max()  # denoised
 
 
-def test_unported_tools(pair):
+def test_unported_tools(pair, monkeypatch):
+    """No tool is left unported: the registry holds the JAX package's 16
+    keys and the schema serves 16 forms equal to JAX's; a ``transcribe``
+    runTask with no ASR model answers the ``tasks_error`` that names
+    ``import-whisper``; ``/checkTextQuality`` with a registered ASR backend
+    on each server transcribes the dataset and scores it: the same
+    ``wer_report.txt`` and status as the JAX server's. An unknown key is
+    still unknown."""
+    from xva_trainer_tpu.tools import TOOL_REGISTRY as JAX_REGISTRY
+    from xva_trainer_tpu.tools.text_tools import TranscribeTool as JaxTranscribe
+    from xva_trainer_tpu_torch.tools import TOOL_REGISTRY, get_tool
+    from xva_trainer_tpu_torch.tools.text_tools import TranscribeTool
+
+    assert set(TOOL_REGISTRY) == set(JAX_REGISTRY) and len(TOOL_REGISTRY) == 16
+    assert all(get_tool(k) is TOOL_REGISTRY[k] for k in TOOL_REGISTRY)
+    with pytest.raises(KeyError, match="unknown tool"):
+        get_tool("nope")
     srv = pair.servers["torch"]
-    # a runTask over the websocket: a tasks_error naming the tool
+    with pytest.raises(KeyError, match="unknown model key"):
+        run(srv.handle_message(json.dumps({"model": "nope", "task": "runTask", "data": {}})))
+    schema = pair.call("/toolSettingsSchema", {})
+    assert len(schema["torch"]["schema"]) == 16 and schema["torch"] == schema["jax"]
+    # no ASR model: the tasks_error that says how to install one
+    monkeypatch.delenv("XVA_WHISPER_CKPT", raising=False)
+    monkeypatch.setattr(TranscribeTool, "_asr_backend", None)
     ws = FakeWS([json.dumps({"model": "transcribe", "task": "runTask",
                              "data": {"inPath": "/x", "outputDirectory": "/y"}})])
     run(srv.websocket_handler(ws))
     events = [json.loads(m) for m in ws.sent]
     assert [e["key"] for e in events] == ["tasks_error"]
-    assert "'transcribe' is not ported" in events[0]["data"]
-    # an unknown key is still an unknown key
-    with pytest.raises(KeyError, match="unknown model key"):
-        run(srv.handle_message(json.dumps({"model": "nope", "task": "runTask", "data": {}})))
-    # the registry: 13 of the JAX package's 16 keys; each of the three left named
-    from xva_trainer_tpu.tools import TOOL_REGISTRY as JAX_REGISTRY
-    from xva_trainer_tpu_torch.tools import TOOL_REGISTRY, get_tool
+    assert "python -m xva_trainer_tpu_torch.cli import-whisper" in events[0]["data"]
+    # the text-quality pass: transcribe, then WER against the user's lines
+    texts = ["line number 0 of game_voice", "line number one of game voice", "a duplicate"]
 
-    assert set(TOOL_REGISTRY) == set(JAX_REGISTRY) - {"transcribe", "make_srt", "ass"}
-    for key in ("transcribe", "make_srt", "ass"):
-        with pytest.raises(KeyError, match=f"'{key}' is not ported"):
-            get_tool(key)
-    # the schema serves the ported tools' forms only
-    schema = run(srv.handle_http("/toolSettingsSchema", {}))["schema"]
-    assert len(schema) == 13 and not {"transcribe", "make_srt", "ass"} & set(schema)
-    # the text-quality pass reports the missing transcribe tool as its error
-    ds = str(pair.roots["torch"] / "datasets" / "game_voice")
+    def backend(wav16k):  # by length, so that each clip gets its own line
+        return texts[len(wav16k) % len(texts)]
 
-    async def text_quality():
-        assert (await srv.handle_http("/checkTextQuality", {"path": ds}))["started"]
-        await asyncio.wait_for(asyncio.shield(srv._tq_task), 30)
+    monkeypatch.setattr(JaxTranscribe, "_asr_backend", backend)
+    monkeypatch.setattr(TranscribeTool, "_asr_backend", backend)
+    status, report = {}, {}
+    for key, s in pair.servers.items():
+        ds = str(pair.roots[key] / "datasets" / "game_voice")
 
-    loop = asyncio.new_event_loop()
-    with pytest.raises(KeyError):
-        loop.run_until_complete(text_quality())
-    status = loop.run_until_complete(srv.handle_http("/textQualityStatus", {"path": ds}))
-    assert status["running"] is False and "'transcribe' is not ported" in status["error"]
+        async def text_quality():
+            assert (await s.handle_http("/checkTextQuality", {"path": ds}))["started"]
+            await asyncio.wait_for(asyncio.shield(s._tq_task), 60)
+            return await s.handle_http("/textQualityStatus", {"path": ds})
+
+        with pair.cwd(key):
+            status[key] = pair.norm(key, asyncio.new_event_loop().run_until_complete(
+                text_quality()))
+        with open(os.path.join(ds, "wer_report.txt"), "rb") as f:
+            report[key] = f.read()
+    assert status["torch"] == status["jax"]
+    assert status["torch"]["running"] is False and "error" not in status["torch"]
+    assert status["torch"]["n_scored"] == 3 and status["torch"]["progress"] == "4/4"
+    assert report["torch"] == report["jax"]
 
 
 def test_tool_settings_schema_parity(pair):
-    """``/toolSettingsSchema``: the JAX server's form of each of the 13
-    ported tools, and no other."""
+    """``/toolSettingsSchema``: the JAX server's form of each of the 16
+    tools, and no other."""
     from xva_trainer_tpu_torch.tools import TOOL_REGISTRY
 
     out = pair.call("/toolSettingsSchema", {})

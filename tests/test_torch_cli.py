@@ -1,7 +1,7 @@
 """The port's command line (``xva_trainer_tpu_torch/cli.py``) and demo
 (``demo.py``) on the CPU: ``tts`` from a tiny trainer's output directory,
-``tool`` while no tool is ported, each command's defaults against the JAX
-package's parser, and the v2 demo end to end."""
+``import-whisper`` and ``tool transcribe`` on its file, each command's
+defaults against the JAX package's parser, and the v2 demo end to end."""
 import argparse
 import os
 
@@ -63,19 +63,45 @@ def test_tts_from_an_output_directory(tiny_run, tmp_path):
 
 
 def test_tool_not_ported(tmp_path):
-    with pytest.raises(KeyError, match="'transcribe' is not ported"):
-        cli.main(["tool", "transcribe", "--in", str(tmp_path), "--out", str(tmp_path / "o"),
-                  "--device", "cpu"])
+    """Every tool is ported: ``import-whisper`` converts a whisper ``.pt``
+    into ``whisper.pt``, and ``tool transcribe`` runs on it on the device
+    it is given; an unknown tool still raises, and the default device is
+    ``cuda``, which this host has not."""
+    import dataclasses
+    import json
+
+    import torch
+
+    from xva_trainer_tpu_torch.models.whisper import Whisper, WhisperConfig
+
+    cfg = WhisperConfig(n_vocab=1000, n_audio_state=32, n_audio_head=2, n_audio_layer=1,
+                        n_text_state=32, n_text_head=2, n_text_layer=1)
+    torch.manual_seed(0)
+    src = tmp_path / "tiny.pt"
+    torch.save({"dims": dataclasses.asdict(cfg), "model_state_dict": Whisper(cfg).state_dict()},
+               src)
+    cli.main(["import-whisper", str(src), "--out", str(tmp_path / "asr")])
+    ckpt = tmp_path / "asr" / "whisper.pt"
+    assert sorted(os.listdir(tmp_path / "asr")) == ["whisper.pt"]
+    wavs = tmp_path / "wavs"
+    wavs.mkdir()
+    for i in range(2):
+        save_wav(str(wavs / f"w{i}.wav"),
+                 (0.3 * np.sin(np.arange(11025) * (0.05 + 0.02 * i))).astype(np.float32))
+    cli.main(["tool", "transcribe", "--in", str(wavs), "--out", str(tmp_path / "o"),
+              "--settings", json.dumps({"modelPath": str(ckpt)}), "--device", "cpu"])
+    rows = (tmp_path / "o" / "metadata.csv").read_text().split("\n")
+    assert [r.split("|")[0] for r in rows] == ["w0.wav", "w1.wav"]
+    assert all(r.split("|")[1].split() for r in rows)  # token ids: no tokenizer assets
     with pytest.raises(KeyError, match="unknown tool"):
         cli.main(["tool", "nope", "--in", "a", "--out", "b"])
-    # a ported tool runs on the device it is given; cuda by default, which
-    # this host has not
+    # a tool runs on the device it is given; cuda by default, which this host has not
     save_wav(str(tmp_path / "a.wav"), np.zeros(4410, np.float32), 44100)
-    cli.main(["tool", "formatting", "--in", str(tmp_path), "--out", str(tmp_path / "o"),
+    cli.main(["tool", "formatting", "--in", str(tmp_path), "--out", str(tmp_path / "f"),
               "--device", "cpu"])
-    assert sorted(os.listdir(tmp_path / "o")) == [".progress.txt", "a.wav"]
+    assert sorted(os.listdir(tmp_path / "f")) == [".progress.txt", "a.wav"]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.main(["tool", "formatting", "--in", str(tmp_path), "--out", str(tmp_path / "o")])
+        cli.main(["tool", "formatting", "--in", str(tmp_path), "--out", str(tmp_path / "f")])
 
 
 ARGVS = [
@@ -88,6 +114,7 @@ ARGVS = [
     ["tts", "--ckpt", "C", "--text", "hi", "--out", "o.wav"],
     ["tool", "formatting", "--in", "I", "--out", "O"],
     ["tool", "formatting", "--in", "I", "--out", "O", "--settings", "{}"],
+    ["import-whisper", "S", "--out", "O"],
     ["serve"],
     ["serve", "--http-port", "9002", "--ws-port", "9001"],
 ]
@@ -100,17 +127,20 @@ def test_arguments_match_the_jax_parser(argv, monkeypatch):
     def capture(args):
         seen["jax"] = vars(args)
 
-    for name in ("cmd_train_v3", "cmd_train_v2", "cmd_tts", "cmd_tool", "cmd_serve"):
+    for name in ("cmd_train_v3", "cmd_train_v2", "cmd_tts", "cmd_tool", "cmd_import_whisper",
+                 "cmd_serve"):
         monkeypatch.setattr(jax_cli, name, capture)
     jax_cli.main(argv)
     mine = vars(cli.build_parser().parse_args(argv))
     theirs = seen["jax"]
-    assert mine.pop("device") == "cuda"
+    on_host = argv[0] == "import-whisper"  # a file conversion: no --device
+    assert mine.pop("device", None) == (None if on_host else "cuda")
     theirs.pop("fn")
     assert mine.pop("fn").__name__ == "cmd_" + argv[0].replace("-", "_")
     assert mine == theirs
-    assert isinstance(cli.build_parser().parse_args(argv + ["--device", "cpu"]),
-                      argparse.Namespace)
+    if not on_host:
+        assert isinstance(cli.build_parser().parse_args(argv + ["--device", "cpu"]),
+                          argparse.Namespace)
 
 
 def test_demo_on_the_cpu(tmp_path, capsys):

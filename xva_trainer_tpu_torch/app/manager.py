@@ -22,7 +22,7 @@ import asyncio
 from typing import Any, Dict
 
 from .. import resolve_device
-from ..tools import JAX_TOOL_KEYS, TOOL_REGISTRY, get_tool
+from ..tools import TOOL_REGISTRY
 
 
 class ModelsManager:
@@ -65,9 +65,8 @@ class ModelsManager:
             from ..models.speaker_encoder import SpeakerEncoder
 
             return SpeakerEncoder(device=self.device)
-        if key in TOOL_REGISTRY or key in JAX_TOOL_KEYS:
-            # a tool not ported yet raises a KeyError that names it
-            return get_tool(key)(self.logger, self.PROD, self.device, self)
+        if key in TOOL_REGISTRY:
+            return TOOL_REGISTRY[key](self.logger, self.PROD, self.device, self)
         raise KeyError(f"unknown model key: {key}")
 
     def load_model(self, key: str, ckpt_path: str, **kwargs):

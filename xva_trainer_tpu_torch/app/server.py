@@ -19,9 +19,9 @@ package). What differs from the JAX server:
 - ``/exportWav`` on an output directory restores the newest
   ``xVAPitch_<n>.pt`` of the port's ``CheckpointManager``; a directory that
   holds only the JAX package's orbax checkpoints is refused;
-- 13 of the 16 tools are ported (``tools.TOOL_REGISTRY``): a ``runTask``
-  or a text-quality pass that needs ``transcribe``, ``make_srt`` or ``ass``
-  fails with an error naming the tool;
+- the tools run on the server's device, and ``transcribe`` (so the
+  text-quality pass) needs a whisper ``.pt`` or a wav2vec2 directory: the
+  JAX package's ``transformers`` fallback is not ported;
 - ``/stopServer`` stops a running job and makes ``serve_with_http`` close
   both servers and return; the JAX server's process ends when the
   ``SystemExit`` it raises leaves the event loop.
@@ -478,7 +478,6 @@ class AppServer:
             data = json.loads(data) if data else {}
 
         if task == "runTask":
-            # a tool not ported yet raises a KeyError naming it (tasks_error)
             tool = await self.manager.init_model(model)
             await tool.runTask(data, websocket)
             return None

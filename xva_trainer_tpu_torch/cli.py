@@ -6,14 +6,17 @@ Usage:
     python -m xva_trainer_tpu_torch.cli train-v2 --dataset D --output O
     python -m xva_trainer_tpu_torch.cli tts --ckpt DIR --text "..." --out out.wav
     python -m xva_trainer_tpu_torch.cli tool formatting --in D --out O
+    python -m xva_trainer_tpu_torch.cli import-whisper SRC --out DIR
     python -m xva_trainer_tpu_torch.cli serve [--http-port 8002 --ws-port 8001]
 
 Counterpart of ``xva_trainer_tpu/cli.py``. Every command takes ``--device``
 (``cuda`` by default; ``cpu`` runs the plain PyTorch path), where the JAX
 package picks its backend through ``JAX_PLATFORMS``; ``cuda`` on a host
 without a card raises. ``tool`` names a tool of the port's
-``TOOL_REGISTRY`` (13 of the JAX package's 16), and ``import-whisper``
-waits for the transcribe tool's port.
+``TOOL_REGISTRY`` (the JAX package's 16). ``import-whisper`` converts an
+OpenAI whisper ``{size}.pt`` or a HuggingFace whisper directory into the
+``whisper.pt`` the transcribe tool reads (on the host; it takes no
+``--device``).
 """
 from __future__ import annotations
 
@@ -74,8 +77,7 @@ def cmd_tts(args):
 def cmd_tool(args):
     from .tools import get_tool
 
-    # raises a KeyError naming the tool while it is not ported
-    tool = get_tool(args.tool)(device=args.device)
+    tool = get_tool(args.tool)(device=args.device)  # a KeyError for an unknown tool
     data = {"inPath": args.inp, "outputDirectory": args.out}
     if args.settings:
         data["toolSettings"] = json.loads(args.settings)
@@ -83,6 +85,19 @@ def cmd_tool(args):
     # to a websocket we don't have and would exit 0 on failure
     asyncio.run(tool.run(data))
     print("done")
+
+
+def cmd_import_whisper(args):
+    """The reference ships whisper ``{size}.pt`` files with its installer;
+    here a user converts any OpenAI or HuggingFace whisper checkpoint into
+    the local layout the transcribe tool reads."""
+    from .interop.whisper_map import import_whisper_checkpoint
+
+    path = import_whisper_checkpoint(args.src, args.out)
+    print(f"wrote {path}")
+    print("use it with either:")
+    print(f"  export XVA_WHISPER_CKPT={path}")
+    print(f"  cli tool transcribe --in D --out O --settings '{{\"modelPath\": \"{path}\"}}'")
 
 
 def cmd_serve(args):
@@ -138,6 +153,13 @@ def build_parser() -> argparse.ArgumentParser:
     tl.add_argument("--out", required=True)
     tl.add_argument("--settings", default=None)
     tl.set_defaults(fn=cmd_tool)
+
+    iw = sub.add_parser("import-whisper", help="convert an OpenAI whisper .pt or HuggingFace "
+                        "whisper dir for the transcribe tool")
+    iw.add_argument("src", help="whisper {size}.pt or HF checkpoint dir")
+    iw.add_argument("--out", required=True, help="output dir; writes whisper.pt + tokenizer "
+                    "assets")
+    iw.set_defaults(fn=cmd_import_whisper)
 
     sv = sub.add_parser("serve", parents=[dev])
     sv.add_argument("--http-port", type=int, default=8002)

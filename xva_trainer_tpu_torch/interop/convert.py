@@ -1,6 +1,7 @@
-"""Carry the JAX package's xVAPitch parameters across to the port, and move
-the decoder's upsampling weight norm between the reference's layout and the
-port's."""
+"""Carry the JAX package's parameters across to the port (xVAPitch, its
+discriminator, FastPitch, HiFi-GAN, the speaker encoder, whisper, wav2vec2
+and the enhancer), and move the decoder's upsampling weight norm between
+the reference's layout and the port's."""
 from __future__ import annotations
 
 import re
@@ -154,3 +155,70 @@ def speaker_encoder_state_dict(jax_variables_as_numpy: Dict) -> Dict[str, torch.
     for p in batch_norm_prefixes():
         sd[p + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def _count(tree: Dict, prefix: str) -> int:
+    return sum(1 for k in tree if k.startswith(prefix))
+
+
+def whisper_state_dict(jax_params_as_numpy: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``Whisper`` parameters (numpy, with or without the top-level
+    ``"params"`` key) → the fp32 state dict of the port's ``Whisper`` in
+    OpenAI's names (``interop/whisper_map.py::whisper_rules``)."""
+    from .whisper_map import whisper_rules
+
+    p = jax_params_as_numpy.get("params", jax_params_as_numpy)
+    rules = whisper_rules(_count(p["encoder"], "block_"), _count(p["decoder"], "block_"))
+    return _tensors(apply_carry(p, rules))
+
+
+def wav2vec2_state_dict(jax_params_as_numpy: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``Wav2Vec2Model`` parameters (numpy) → the fp32 state dict of
+    the port's ``Wav2Vec2Model`` in HuggingFace's names. JAX holds the
+    positional conv's folded kernel; it is split into ``weight_v`` (the
+    kernel) and ``weight_g`` (its norm over dims 0 and 1, per kernel
+    position)."""
+    from .mapping import _f2t
+    from .wav2vec2_map import POS_CONV, wav2vec2_rules
+
+    p = jax_params_as_numpy.get("params", jax_params_as_numpy)
+    rules = wav2vec2_rules(_count(p["feature_extractor"], "conv_"), _count(p, "layer_"))
+    sd = apply_carry(p, rules)
+    w = _f2t(np.asarray(p["pos_conv_embed"]["conv"]["kernel"], np.float32), "conv1d")
+    sd[f"{POS_CONV}.weight_g"] = np.sqrt((w.astype(np.float64) ** 2).sum(
+        axis=(0, 1), keepdims=True)).astype(np.float32)
+    sd[f"{POS_CONV}.weight_v"] = np.array(w, order="C")
+    return _tensors(sd)
+
+
+def enhancer_rules(depth: int):
+    """flax's auto-names of ``ComplexMaskNet`` (call order) → the port's
+    modules (``models/enhance/model.py``)."""
+    from .mapping import Rule
+
+    def conv(tkey, name, kind):
+        return [Rule(tkey + ".weight", (name, "kernel"), kind),
+                Rule(tkey + ".bias", (name, "bias"), "id")]
+
+    def norm(tkey, name):
+        return [Rule(tkey + ".weight", (name, "scale"), "id"),
+                Rule(tkey + ".bias", (name, "bias"), "id")]
+
+    rules = []
+    for d in range(depth):
+        rules += conv(f"enc.{d}", f"Conv_{2 * d}", "conv2d")
+        rules += norm(f"enc_norm.{d}", f"LayerNorm_{d}")
+        rules += conv(f"down.{d}", f"Conv_{2 * d + 1}", "conv2d")
+    for i in range(depth):
+        rules += conv(f"up.{i}", f"ConvTranspose_{i}", "convT2d")
+        rules += norm(f"dec_norm.{i}", f"LayerNorm_{depth + i}")
+    return rules + conv("out", f"Conv_{2 * depth}", "conv2d")
+
+
+def enhancer_state_dict(jax_params_as_numpy: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``ComplexMaskNet`` parameters (numpy; the shipped
+    ``enhancer_default.npz`` unflattened) → the fp32 state dict of the
+    port's ``ComplexMaskNet``; each transposed conv's kernel flipped on
+    both spatial axes (kind ``convT2d``)."""
+    p = jax_params_as_numpy.get("params", jax_params_as_numpy)
+    return _tensors(apply_carry(p, enhancer_rules(_count(p, "ConvTranspose_"))))

@@ -12,6 +12,9 @@ Layout kinds (flax shape -> torch shape):
 - convT1d:  (k, in, out)      -> (in, out, k) + spatial flip
             (torch ConvTranspose1d with padding (k-u)//2 equals flax 'SAME')
 - conv2d:   (kh, kw, in, out) -> (out, in, kh, kw)
+- convT2d:  (kh, kw, in, out) -> (in, out, kh, kw) + flip of both spatial axes
+            (flax ConvTranspose 'SAME' at stride 2 equals torch
+            ConvTranspose2d with padding (k-1)//2 and the last column dropped)
 - linear:   (in, out)         -> (out, in)
 - embed/id: unchanged
 - flat:     reshape to ``tshape`` (ElementwiseAffine (C,) -> (C, 1))
@@ -53,6 +56,8 @@ def _f2t(w: np.ndarray, kind: str, tshape=None) -> np.ndarray:
         return np.transpose(w[::-1], (1, 2, 0))
     if kind == "conv2d":
         return np.transpose(w, (3, 2, 0, 1))
+    if kind == "convT2d":
+        return np.transpose(w[::-1, ::-1], (2, 3, 0, 1))
     if kind == "linear":
         return np.transpose(w)
     if kind == "flat":

@@ -1,7 +1,6 @@
 """Per-tool settings schemas (reference javascript/tools.js:82-488).
 
-The port's copy of ``xva_trainer_tpu/tools/schema.py``, every tool's form;
-``tools/__init__.py`` serves the forms of the tools the port has.
+The port's copy of ``xva_trainer_tpu/tools/schema.py``: every tool's form.
 
 The reference renders a hand-built settings panel per tool; here the same
 fields are declared as data and the web UI generates the form, so the
