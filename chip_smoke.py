@@ -158,7 +158,20 @@ each:
    22 s recording, ``/checkTextQuality``; then a profiled transcription;
    held to the CPU (whisper's encoder and its tokens by one teacher-forced
    pass, wav2vec2's logits and texts, the enhanced waveform)
-   (``model_tools_phase``).
+   (``model_tools_phase``);
+22. ``parallel`` (after phase 12, whose CPU noise scale holds its updates,
+   on the ``data`` phase's clips): data and tensor parallelism on the one
+   card, two ranks of ``python3 chip_smoke.py --rank gloo ...`` on
+   ``cuda:0`` over gloo: the full-width v3 step on a global batch of 4
+   (ragged, so the global normalisers matter) against the one-process
+   step, FastPitch's stage 4 at full width at data 1 × model 2 against the
+   replicated step, one ``XVAPitchTrainer`` update with ``gam`` 2, rank 0's
+   checkpoint and a resume on both ranks; then a one-rank NCCL group; and,
+   on a host with two cards only, the v3 step over NCCL a card a rank
+   (``parallel_phase``);
+23. ``waveglow``: ``WaveGlowConfig()`` at full width on 2 s of mel, card
+   against CPU on the same noise, the denoiser, a clip's time, and SSIM
+   (``waveglow_phase``).
 
 Phases 4-6 are the serving path, phase 13's path the data path, phase 14's
 seeding pass and three updates the loop path, phase 16's path from
@@ -169,9 +182,11 @@ path, phase 19's from its first ``startTraining`` to ``/stopServer`` the
 server path, phase 20's from its first ``runTask`` to the uploaded
 recording the tools path and phase 21's from ``ass`` to the end of
 ``/checkTextQuality`` the model_tools path (which launch neither kernel: no
-tool computes an STFT mel or an alignment), and phase 12's timed steps the training
-path: the launch counts are set to 0 just before each and read just after
-it. Every comparison runs with TF32 off.
+tool computes an STFT mel or an alignment), phase 12's timed steps the training
+path, phase 22's two-rank v3 micro-steps the parallel path (counted in each
+rank's process, summed) and phase 23's synthesis the waveglow path (which
+launches neither kernel, in JAX as here): the launch counts are set to 0
+just before each and read just after it. Every comparison runs with TF32 off.
 Then come the line of kernels, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
 lines. Needs one CUDA device; imports no JAX.
@@ -179,6 +194,7 @@ lines. Needs one CUDA device; imports no JAX.
 from __future__ import annotations
 
 import base64
+import dataclasses
 import functools
 import gzip
 import hashlib
@@ -783,6 +799,7 @@ def train_phases(cfg, dev):
     check(max(loss_rel.values()) < 1e-3 and worst <= 1.0,
           f"train_gpu_vs_cpu: loss rel err {max(loss_rel.values())}, worst update ratio {worst} "
           f"at the CPU noise scale {scale}")
+    noise_scale = scale
 
     # ---- 10. AMP against fp32, from the same state ----
     g_gpu.load_state_dict(old[0])
@@ -869,6 +886,7 @@ def train_phases(cfg, dev):
               "profiled_step": prof, "losses": metas[-1], "all_losses_finite": finite,
               "amp": tcfg.use_amp, "tf32": False, "dropout": "on (training mode)"}
     emit("train_step", **record)
+    record["cpu_noise_scale"] = noise_scale
     check(finite, "train_step: a loss component is not finite")
     return launches, record
 
@@ -4707,6 +4725,628 @@ def model_tools_phase(dev, smi: str, work: str, data_ds: str, whisper_cfg=None, 
     return launches, rec
 
 
+# ---------------- the parallel and waveglow phases ----------------
+
+PAR_GB = 4              # the v3 step's global batch, over two ranks
+PAR_STEPS = 2           # micro-steps of each parallel step
+# SGD's rate in the v3 step. One SGD step at 1e-4 moves the seeded model's
+# mel loss by 25%, and the second micro-step's losses carry the first one's
+# fp32 noise (a reduction order) times the rate: in a CPU rehearsal at tiny
+# width, 4.4e-5 relative at the train row's 1e-3 and 9.9e-6 at 1e-4
+PAR_LR = 2e-5
+PAR_TRAIN_BATCH = 16    # the trainer's batch at the largest bucket (per update: gam 2)
+PAR_FP_B = 8            # FastPitch's stage-4 batch
+TP_GRAD_BAR = 1e-4      # the TP gradients against the replicated ones (of each tensor's max abs)
+TP_LAMB_BAR = 1e-5      # LAMB on the cut model against the whole model, same gradients
+PAR_TIMEOUT_S = 600.0
+WG_SECONDS = 2.0        # the WaveGlow clip
+
+
+def tree_digest(tree, h=None) -> str:
+    """SHA-256 of a tree of dicts, lists, tensors and plain values: every
+    key, every tensor's dtype, shape and bytes, every value's repr."""
+    top = h is None
+    h = h or hashlib.sha256()
+    if torch.is_tensor(tree):
+        t = tree.detach().contiguous().cpu()
+        h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            h.update(repr(k).encode())
+            tree_digest(v, h)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            tree_digest(v, h)
+    else:
+        h.update(repr(tree).encode())
+    return h.hexdigest() if top else ""
+
+
+def params_digest(*modules) -> str:
+    return tree_digest([m.state_dict() for m in modules])
+
+
+def spawn_ranks(task: str, world: int, work: str, inputs, timeout: float = PAR_TIMEOUT_S):
+    """Run ``python3 chip_smoke.py --rank TASK RANK WORLD PORT WORK`` for each
+    rank (inputs in ``WORK/inputs_TASK.pt``), with a free localhost port and a
+    time limit; a rank that fails or outlives the limit fails the phase and
+    the others are killed. Returns each rank's result and the wall seconds."""
+    torch.save(inputs, os.path.join(work, f"inputs_{task}.pt"))
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", task,
+                               str(r), str(world), str(port), work],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=REPO)
+             for r in range(world)]
+    logs = [[] for _ in procs]
+    readers = [threading.Thread(target=lambda p=p, log=log: log.extend(p.stdout), daemon=True)
+               for p, log in zip(procs, logs)]
+    for t in readers:
+        t.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode for p in procs if p.poll() is not None):
+                break
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+        for t in readers:
+            t.join(timeout=10)
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    for r, log in enumerate(logs):
+        if bad:
+            sys.stderr.write(f"--- rank {r} of {task}:\n"
+                             + b"".join(log).decode(errors="replace")[-4000:])
+    check(not bad, f"parallel: ranks of {task} failed or ran past {timeout} s: {bad}")
+    return ([torch.load(os.path.join(work, f"out_{task}_{r}.pt"), weights_only=False)
+             for r in range(world)], time.perf_counter() - t0)
+
+
+def par_v3_steps(inp: dict, dev, mesh=None) -> dict:
+    """PAR_STEPS fp32 micro-steps of the full-width v3 step (SGD, dropout off,
+    the given global draws) on the global batch, this rank's slice under
+    ``mesh``; the kernels' launches counted over them."""
+    from xva_trainer_tpu_torch.models.xvapitch import VitsDiscriminator, XVAPitch, XVAPitchConfig
+    from xva_trainer_tpu_torch.ops import _cuda
+    from xva_trainer_tpu_torch.data.prefetch import batch_to_device
+    from xva_trainer_tpu_torch.parallel.mesh import shard_batch
+    from xva_trainer_tpu_torch.train.xvapitch_trainer import make_v3_step
+
+    g, d = XVAPitch(XVAPitchConfig(**inp["cfg"])), VitsDiscriminator()
+    g.load_state_dict(inp["g_sd"])
+    d.load_state_dict(inp["d_sd"])
+    g, d = g.to(dev).eval(), d.to(dev).eval()
+    step = make_v3_step(g, d, Sgd(g.parameters(), PAR_LR), Sgd(d.parameters(), PAR_LR),
+                        freeze_post_dec=False, use_amp=False, mesh=mesh)
+    draws = {k: v.to(dev) for k, v in inp["draws"].items()}
+    batch = (batch_to_device(inp["batch"], dev) if mesh is None
+             else shard_batch(mesh, inp["batch"], dev))
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    metas = [{k: float(v) for k, v in step(batch, **draws).items() if v.dim() == 0}
+             for _ in range(PAR_STEPS)]
+    sync(dev)
+    return {"metas": metas, "launches": dict(_cuda.LAUNCHES),
+            "seconds": time.perf_counter() - t0, "digest": params_digest(g, d),
+            "state": state_of(g, d), "rows": int(batch["tokens"].shape[0]),
+            "frames": int(batch["slens"].sum()), "peak_memory_gb": peak_gb(dev)}
+
+
+class FirstGrads:
+    """An optimiser that keeps a copy of the gradients of its first step and
+    hands every step on to ``opt``."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def step(self, grads):
+        if self.grads is None:
+            self.grads = [None if g is None else g.detach().clone() for g in grads]
+        return self.opt.step(grads)
+
+
+def tp_whole(params, tensors, mesh) -> list:
+    """``tensors`` (one for each of ``params``) whole: the block of a
+    parameter that ``shard_params`` cut reassembled over the model group."""
+    import torch.distributed as dist
+
+    out = []
+    for p, t in zip(params, tensors):
+        spec = getattr(p, "tp_spec", ())
+        if t is None or not spec or mesh is None or mesh.n_model == 1:
+            out.append(None if t is None else t.detach().clone())
+            continue
+        dim = spec.index("model")
+        shape = list(t.shape)
+        shape[dim] *= mesh.n_model
+        full = torch.zeros(shape, dtype=t.dtype, device=t.device)
+        full.narrow(dim, mesh.model_index * t.shape[dim], t.shape[dim]).copy_(t)
+        dist.all_reduce(full, group=mesh.model_group)
+        out.append(full)
+    return out
+
+
+def tp_block(p, whole: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block of ``whole`` for parameter ``p`` (``whole`` itself
+    for a parameter that is not cut)."""
+    spec = getattr(p, "tp_spec", ())
+    if not spec or mesh is None or mesh.n_model == 1:
+        return whole
+    dim = spec.index("model")
+    size = p.shape[dim]
+    return whole.narrow(dim, mesh.model_index * size, size).contiguous()
+
+
+def par_fastpitch_steps(inp: dict, dev, mesh=None) -> dict:
+    """PAR_STEPS stage-4 micro-steps of the full-width FastPitch (LAMB, one
+    update each, dropout on, fp32) on one batch; its FFNs cut over the
+    mesh's model axis when it has one. Also returns the first micro-step's
+    gradients before the optimiser (whole tensors, by name)."""
+    from xva_trainer_tpu_torch.models.fastpitch import FastPitch, FastPitchConfig
+    from xva_trainer_tpu_torch.parallel.tp import FASTPITCH_TP_RULES, gather_params, shard_params
+    from xva_trainer_tpu_torch.train import fastpitch_trainer as pft
+    from xva_trainer_tpu_torch.train.optim import LambOptimizer, fastpitch_stage_mask
+
+    model = FastPitch(FastPitchConfig(**inp["cfg"]))
+    model.load_state_dict(inp["sd"])
+    model.to(dev).train()
+    if mesh is not None:
+        shard_params(model, mesh, FASTPITCH_TP_RULES)
+    names = [k for k, _ in model.named_parameters()]
+    opt = FirstGrads(LambOptimizer(model.parameters(), 0.1, 1e-6, 10,
+                                   train_mask=fastpitch_stage_mask(model, 4)))
+    step = pft.make_stage_step(model, 4, opt, use_amp=False, device_prior=True, mesh=mesh)
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in inp["batch"].items() if k != "durs"}
+    tb = {k: v.long() if v.dtype == torch.int32 else v for k, v in tb.items()}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sync(dev)
+    t0 = time.perf_counter()
+    metas = [{k: float(v) for k, v in step(tb, 0.0, gen).items()} for _ in range(PAR_STEPS)]
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    grads = dict(zip(names, tp_whole(list(model.parameters()), opt.grads, mesh)))
+    params = (gather_params(model, mesh) if mesh is not None
+              else {k: v.detach().clone() for k, v in model.named_parameters()})
+    return {"metas": metas, "seconds": seconds,
+            "params": {k: v.float().cpu() for k, v in params.items()},
+            "cut": sum(1 for p in model.parameters() if getattr(p, "tp_spec", ())),
+            "grads": {k: None if g is None else g.float().cpu() for k, g in grads.items()}}
+
+
+def par_lamb_update(inp: dict, dev, mesh=None) -> dict:
+    """The parameters (whole, by name) after one LAMB update of the initial
+    FastPitch by the gradients ``inp["lamb_grads"]`` (whole, by name), its
+    FFNs cut over the mesh's model axis when it has one. The last half of
+    each gradient that the TP rules cut is zeroed along its cut dimension,
+    so that the two blocks' norms differ: a trust ratio from a block's own
+    norms would then miss the whole tensor's by far."""
+    from xva_trainer_tpu_torch.models.fastpitch import FastPitch, FastPitchConfig
+    from xva_trainer_tpu_torch.parallel.tp import (FASTPITCH_TP_RULES, gather_params,
+                                                   shard_params, tp_pspecs)
+    from xva_trainer_tpu_torch.train.optim import LambOptimizer, fastpitch_stage_mask
+
+    model = FastPitch(FastPitchConfig(**inp["cfg"]))
+    model.load_state_dict(inp["sd"])
+    model.to(dev).train()
+    grads = {}
+    for k, spec in tp_pspecs(model, FASTPITCH_TP_RULES).items():
+        g = inp["lamb_grads"][k]
+        if g is not None and "model" in spec:
+            dim = spec.index("model")
+            g = g.clone()
+            g.narrow(dim, g.shape[dim] // 2, g.shape[dim] - g.shape[dim] // 2).zero_()
+        grads[k] = g
+    if mesh is not None:
+        shard_params(model, mesh, FASTPITCH_TP_RULES)
+    lamb = LambOptimizer(model.parameters(), 0.1, 1e-6, 10,
+                         train_mask=fastpitch_stage_mask(model, 4))
+    lamb.step([None if grads[k] is None else tp_block(p, grads[k].to(dev), mesh)
+               for k, p in model.named_parameters()])
+    params = (gather_params(model, mesh) if mesh is not None
+              else {k: v.detach().clone() for k, v in model.named_parameters()})
+    return {k: v.float().cpu() for k, v in params.items()}
+
+
+def par_trainer(inp: dict, dev, mesh) -> dict:
+    """One ``XVAPitchTrainer`` update (``gam`` 2, AMP, a checkpoint) on the
+    data phase's clips, this rank's slice of every batch; then a trainer
+    resumed from the directory on every rank."""
+    from xva_trainer_tpu_torch.data.text import v3_text_to_ids
+    from xva_trainer_tpu_torch.data.xva_dataset import XvaBatcher, XvaFeatureCache
+    from xva_trainer_tpu_torch.models.xvapitch import XVAPitchConfig
+    from xva_trainer_tpu_torch.train import xvapitch_trainer as pxt
+
+    cache = XvaFeatureCache(inp["dataset"], v3_text_to_ids("en"), lang="en", device=dev)
+    cache.build()  # built by the data phase: nothing to do
+
+    def trainer():
+        batcher = XvaBatcher([cache], PAR_TRAIN_BATCH, inp["emb"])
+        batcher.batch_divisor = mesh.n_data
+        target = 2 * batcher.mean_batch_size()  # gam 2
+        cfg = pxt.XvaTrainConfig(output_dir=inp["out"], save_step=1, target_bs=int(target),
+                                 seed_loss_sorting=False)
+        return pxt.XVAPitchTrainer(batcher, cfg, XVAPitchConfig(**inp["cfg"]), device=dev,
+                                   mesh=mesh)
+
+    t0 = time.perf_counter()
+    tr = trainer()
+    tr.setup(resume=False)
+    res = tr.train(max_steps=1)
+    sync(dev)
+    out = {"gam": tr.gam, "train": res, "seconds": time.perf_counter() - t0,
+           "last_save": dict(tr.ckpt.last_save), "digest": tree_digest(tr.checkpoint_state()),
+           "items_sorted": len(tr.loss_sampling), "micro_steps": tr.micro_steps}
+    import torch.distributed as dist
+
+    dist.barrier()
+    out["files"] = sorted(os.listdir(inp["out"]))
+    del tr
+    t0 = time.perf_counter()
+    tr2 = trainer()
+    tr2.setup(resume=True)
+    sync(dev)
+    out.update(resume_seconds=time.perf_counter() - t0,
+               resumed_digest=tree_digest(tr2.checkpoint_state()),
+               resumed_iters=tr2.training_iters)
+    return out
+
+
+def rank_worker(argv) -> int:
+    """``--rank TASK RANK WORLD PORT WORK``: one rank of the parallel phase."""
+    import torch.distributed as dist
+
+    from xva_trainer_tpu_torch.parallel.distributed import (broadcast_from_host0,
+                                                            initialize_distributed)
+    from xva_trainer_tpu_torch.parallel.mesh import make_mesh
+
+    task, rank, world, port, work = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inp = torch.load(os.path.join(work, f"inputs_{task}.pt"), weights_only=False)
+    out = {"rank": rank}
+    if task == "gloo":  # every rank on cuda:0, gloo carrying CUDA tensors
+        dev = torch.device(inp["device"])
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                               timeout_s=PAR_TIMEOUT_S)
+        out["backend"] = dist.get_backend()
+        mesh = make_mesh(n_data=world)
+        out["v3"] = par_v3_steps(inp["v3"], dev, mesh)
+        if rank != 0:
+            out["v3"].pop("state")
+        tp_mesh = make_mesh(n_data=1, n_model=world)
+        out["fastpitch_tp"] = par_fastpitch_steps(inp["fastpitch"], dev, tp_mesh)
+        out["fastpitch_tp"]["lamb_params"] = par_lamb_update(inp["fastpitch"], dev, tp_mesh)
+        if rank != 0:
+            for k in ("params", "grads", "lamb_params"):
+                out["fastpitch_tp"].pop(k)
+        out["trainer"] = par_trainer(inp["trainer"], dev, mesh)
+        out["peak_memory_gb"] = peak_gb(dev)
+        dist.destroy_process_group()
+        if rank == 0 and dev.type == "cuda":  # a one-rank NCCL group through the port's entry point
+            t0 = time.perf_counter()
+            initialize_distributed(f"127.0.0.1:{inp['nccl_port']}", 1, 0, device=dev)
+            x = torch.arange(1024.0, device=dev)
+            dist.all_reduce(x)
+            tree = broadcast_from_host0({"x": x})
+            out["nccl_one_rank"] = {"backend": dist.get_backend(), "ok": bool(
+                torch.equal(x, torch.arange(1024.0, device=dev)) and tree["x"] is x),
+                "seconds": time.perf_counter() - t0}
+            dist.destroy_process_group()
+    elif task == "nccl":  # one card a rank
+        dev = torch.device("cuda", rank)
+        initialize_distributed(f"127.0.0.1:{port}", world, rank, device=dev)
+        out["backend"] = dist.get_backend()
+        out["v3"] = par_v3_steps(inp["v3"], dev, make_mesh(n_data=world))
+        if rank != 0:
+            out["v3"].pop("state")
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(work, f"out_{task}_{rank}.pt"))
+    return 0
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def peak_gb(dev) -> float | None:
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
+
+
+def tp_report(one: dict, native: dict, tp: dict, lamb_one: dict) -> dict:
+    """Where the TP step's parameters leave the replicated step's, the
+    gradient path and the optimiser held apart (``par_fastpitch_steps``'
+    results: ``one`` replicated, ``native`` replicated with cuDNN off, ``tp``
+    the cut model's rank 0; ``lamb_one`` and ``tp["lamb_params"]`` from
+    ``par_lamb_update``):
+
+    - the first micro-step's gradients before LAMB (each cut tensor
+      reassembled), each tensor's max-abs distance over its bar: TP_GRAD_BAR
+      of its max abs plus 1e-6 of the largest gradient (a gradient zero in
+      exact arithmetic); the same for the cuDNN-off step, whose worst ratio,
+      doubled and at least 1, is the noise scale the TP step is held to
+      (two fp32 implementations of one step differ by at least that: a
+      ReLU input within rounding of zero takes the other side);
+    - the fixed-gradient LAMB update, each tensor's max-abs distance over
+      its max abs (held to TP_LAMB_BAR);
+    - after PAR_STEPS LAMB updates, each tensor's max-abs distance over its
+      max abs, and at its worst element the replicated first gradient's size
+      against the tensor's largest and the two first gradients' difference
+      against it."""
+    g_one = {k: v for k, v in one["grads"].items() if v is not None}
+    g_floor = 1e-6 * max(float(v.abs().max()) for v in g_one.values())
+
+    def grad_rows(grads):
+        return sorted(((float((grads[k] - v).abs().max())
+                        / (TP_GRAD_BAR * float(v.abs().max()) + g_floor), k)
+                       for k, v in g_one.items()), reverse=True)
+
+    tp_rows, noise_rows = grad_rows(tp["grads"]), grad_rows(native["grads"])
+    lamb_rows = sorted(((float((tp["lamb_params"][k] - v).abs().max()
+                               / v.abs().max().clamp(min=1e-30)), k)
+                        for k, v in lamb_one.items()), reverse=True)
+    params, elements = [], {}
+    for k, v in one["params"].items():
+        diff = (tp["params"][k] - v).abs()
+        params.append((float(diff.max() / v.abs().max().clamp(min=1e-30)), k))
+        g = g_one.get(k)
+        if g is not None:
+            at = int(diff.argmax())
+            g_at = float(g.reshape(-1)[at])
+            elements[k] = {
+                "grad_over_tensor_max": abs(g_at) / max(float(g.abs().max()), 1e-30),
+                "grad_rel_diff": abs(float(tp["grads"][k].reshape(-1)[at]) - g_at)
+                / max(abs(g_at), 1e-30)}
+    params = sorted(params, reverse=True)[:4]
+    noise_of = {k: r for r, k in noise_rows}
+    return {"param_rel_err_worst": params,
+            "param_worst_elements": {k: elements.get(k) for _, k in params},
+            "grad_bar": TP_GRAD_BAR, "grad_err_over_bar_worst": tp_rows[:4],
+            "grad_noise_over_bar_worst": noise_rows[:4],
+            "grad_noise_over_bar_at_tp_worst": [[noise_of[k], k] for _, k in tp_rows[:4]],
+            "grad_noise_scale": max(1.0, 2.0 * noise_rows[0][0]),
+            "lamb_same_grads_rel_err_worst": lamb_rows[:4]}
+
+
+def parallel_phase(cfg, dev, smi: str, data: dict, work: str, noise_scale: float,
+                   fp_cfg=None):
+    """Phase 22, ``parallel``: data and tensor parallelism on one card.
+
+    NCCL refuses two ranks on one card, so two ranks run on ``cuda:0`` over
+    gloo, which carries CUDA tensors:
+    1. the full-width v3 step (``XVAPitchConfig()`` with the VITS
+       discriminator, fp32, SGD, dropout off, TF32 off), PAR_STEPS
+       micro-steps on a global batch of 4 on the 64 × 256 bucket with ragged
+       lengths (so that each half's own frame counts would give another
+       loss), against the one-process step on the same global batch on the
+       card: losses within 1e-5 relative, both ranks' parameters
+       bit-identical, the update within ``update_mismatch``'s bar at the CPU
+       noise scale of the ``train_gpu_vs_cpu`` row; ``fused_stft`` 2 and
+       ``mas`` 1 a rank a micro-step (this is the ``parallel`` path);
+    2. FastPitch's stage-4 step at full width (``FastPitchConfig()``, its
+       1 536-wide FFNs) at data 1 × model 2 against the replicated step:
+       losses within 1e-3 relative (``tests/test_tp.py``'s bar); the
+       first micro-step's gradients before LAMB within TP_GRAD_BAR times
+       the noise scale of the replicated step with cuDNN off (``tp_report``), and
+       one LAMB update by the same gradients (``par_lamb_update``) on the
+       cut and the whole model within TP_LAMB_BAR (the gradient path and
+       the optimiser's whole-tensor norms held apart);
+    3. one ``XVAPitchTrainer`` update (``gam`` 2, AMP) on the data phase's
+       clips: rank 0 alone wrote the checkpoint; a trainer resumed on both
+       ranks holds a state (parameters, both optimisers, host state)
+       bit-identical across the ranks and to the trained one's;
+    then a one-rank NCCL group through ``initialize_distributed``, its
+    all-reduce on the card. Where the host has two cards, the v3 step of 1.
+    runs again over NCCL, a card a rank; otherwise the record says why not.
+    Returns the path's launch counts (summed over the ranks) and the
+    record. ``parallel_phase(torch.device("cpu"), ...)`` with tiny configs
+    rehearses it on the CPU (gloo ranks on the CPU, no NCCL)."""
+    from xva_trainer_tpu_torch.models.fastpitch import FastPitch, FastPitchConfig
+
+    fp_cfg = fp_cfg or FastPitchConfig()
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(60)
+    batch = train_batch(rng, PAR_GB, 64, 256, dev)
+    draws = step_draws(batch, cfg, torch.Generator().manual_seed(61), dev)
+    g, d = seeded_model(cfg, 62), seeded_disc(63).eval()
+    old = state_of(g, d)
+    v3_in = {"g_sd": old[0], "d_sd": old[1], "draws": {k: v.cpu() for k, v in draws.items()},
+             "batch": {k: v.cpu().numpy() for k, v in batch.items()},
+             "cfg": dataclasses.asdict(cfg)}
+    del g, d
+    one = par_v3_steps(v3_in, dev)
+    torch.manual_seed(64)
+    fp_sd = {k: v.clone() for k, v in FastPitch(fp_cfg).state_dict().items()}
+    fp_in = {"sd": fp_sd, "cfg": dataclasses.asdict(fp_cfg),
+             "batch": fastpitch_batch(np.random.default_rng(65), PAR_FP_B, 64, 256)}
+    fp_one = par_fastpitch_steps(fp_in, dev)
+    with torch.backends.cudnn.flags(enabled=False):  # the gradients' fp32 noise scale
+        fp_native = par_fastpitch_steps(fp_in, dev)
+    fp_in["lamb_grads"] = fp_one["grads"]  # the fixed-gradient LAMB update's
+    lamb_one = par_lamb_update(fp_in, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out_dir = os.path.join(work, "parallel_out")
+    rank_dev = torch.device("cuda", dev.index or 0) if dev.type == "cuda" else dev
+    inputs = {"v3": v3_in, "fastpitch": fp_in, "nccl_port": free_port(), "device": str(rank_dev),
+              "trainer": {"dataset": data["dataset"], "emb": data["emb"]["main"], "out": out_dir,
+                          "cfg": dataclasses.asdict(cfg)}}
+    ranks, spawn_s = spawn_ranks("gloo", 2, work, inputs)
+
+    # 1. the v3 step
+    v3 = [r["v3"] for r in ranks]
+    loss_errs = {f"{i}:{k}": max(abs(r["metas"][i][k] - ref[k]) / max(abs(ref[k]), 1e-30)
+                                 for r in v3)
+                 for i, ref in enumerate(one["metas"]) for k in ref}
+    loss_rel = max(loss_errs.values())
+    rows, over = update_mismatch(old[0], [one["state"][0]], v3[0]["state"][0], noise_scale)
+    d_rows, d_over = update_mismatch(old[1], [one["state"][1]], v3[0]["state"][1], noise_scale)
+    half_frames = [r["frames"] for r in v3]
+    per_rank = [r["launches"] for r in v3]
+    launches = {k: sum(c[k] for c in per_rank) for k in per_rank[0]}
+    check(loss_rel < 1e-5, f"parallel: the two-rank v3 step's losses off the one-process "
+                           f"step's: {loss_errs}")
+    check(v3[0]["digest"] == v3[1]["digest"], "parallel: the ranks' parameters differ")
+    check(not over and not d_over, f"parallel: updates past the bar at the CPU noise scale "
+                                   f"{noise_scale}: {over + d_over}")
+    check(dev.type != "cuda"  # the CPU runs the plain versions, which count nothing
+          or all(c == {"fused_stft": 2 * PAR_STEPS, "mas": PAR_STEPS} for c in per_rank),
+          f"parallel: launches a rank {per_rank}, expected 2 fused_stft and 1 mas a micro-step")
+    check(half_frames[0] != half_frames[1], f"parallel: equal halves {half_frames}")
+
+    # 2. FastPitch, tensor-parallel
+    tp = ranks[0]["fastpitch_tp"]
+    tp_rel = max(abs(m["loss"] - ref["loss"]) / max(abs(ref["loss"]), 1.0)
+                 for r in ranks for m, ref in zip(r["fastpitch_tp"]["metas"], fp_one["metas"]))
+    rep = tp_report(fp_one, fp_native, tp, lamb_one)
+    n_cut = 3 * (fp_cfg.in_fft_n_layers + fp_cfg.out_fft_n_layers)
+    check(tp_rel < 1e-3 and all(r["fastpitch_tp"]["cut"] == n_cut for r in ranks),
+          f"parallel: the TP step's losses off the replicated step's by {tp_rel}; cut "
+          f"{[r['fastpitch_tp']['cut'] for r in ranks]}")
+    check(set(tp["grads"]) == set(fp_one["grads"])
+          and rep["grad_err_over_bar_worst"][0][0] <= rep["grad_noise_scale"],
+          f"parallel: the TP step's gradients off the replicated step's beyond the noise "
+          f"scale {rep['grad_noise_scale']}: {rep['grad_err_over_bar_worst']}")
+    check(rep["lamb_same_grads_rel_err_worst"][0][0] <= TP_LAMB_BAR,
+          f"parallel: LAMB on the cut model off the whole model's: "
+          f"{rep['lamb_same_grads_rel_err_worst']}")
+
+    # 3. the trainer
+    tr = [r["trainer"] for r in ranks]
+    ckpts = [f for f in tr[0]["files"] if f.startswith("xVAPitch_") and f.endswith(".pt")]
+    check(tr[0]["last_save"].get("step") == 1 and tr[1]["last_save"] == {}
+          and ckpts == ["xVAPitch_1.pt"],
+          f"parallel: checkpoints {ckpts}, rank 0 saved {tr[0]['last_save']}, rank 1 saved "
+          f"{tr[1]['last_save']}")
+    check(tr[0]["digest"] == tr[1]["digest"] == tr[0]["resumed_digest"] == tr[1]["resumed_digest"]
+          and all(t["gam"] == 2 and t["micro_steps"] == 2 and t["resumed_iters"] == 1
+                  for t in tr),
+          f"parallel: the trainer's ranks or the resume differ: {tr}")
+    nccl1 = ranks[0].get("nccl_one_rank", {"run": False, "reason": "the CPU: no NCCL"})
+    check(dev.type != "cuda" or (nccl1["backend"] == "nccl" and nccl1["ok"]),
+          f"parallel: one-rank NCCL {nccl1}")
+
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    nccl2 = {"run": False, "reason": f"{n_cards} card(s): NCCL refuses two ranks on one "
+                                     "card, so the two-card NCCL run needs two"}
+    if n_cards >= 2:
+        n_ranks, n_s = spawn_ranks("nccl", 2, work, {"v3": v3_in})
+        n_rel = max(abs(m[k] - ref[k]) / max(abs(ref[k]), 1e-30)
+                    for r in n_ranks for m, ref in zip(r["v3"]["metas"], one["metas"])
+                    for k in ref)
+        n_over = update_mismatch(old[0], [one["state"][0]], n_ranks[0]["v3"]["state"][0],
+                                 noise_scale)[1]
+        nccl2 = {"run": True, "backend": n_ranks[0]["backend"], "loss_rel_err": n_rel,
+                 "over_bar": n_over, "seconds": n_s,
+                 "step_seconds": [r["v3"]["seconds"] for r in n_ranks]}
+        check(n_rel < 1e-5 and not n_over and n_ranks[0]["v3"]["digest"]
+              == n_ranks[1]["v3"]["digest"], f"parallel: the NCCL two-card step {nccl2}")
+    record = {
+        "v3_step": {"global_batch": PAR_GB, "bucket": [64, 256], "micro_steps": PAR_STEPS,
+                    "frames_by_rank": half_frames, "rows_by_rank": [r["rows"] for r in v3],
+                    "loss_rel_err_max": loss_rel, "loss_rel_err": loss_errs,
+                    "losses": one["metas"],
+                    "worst_updates": {"generator": rows, "discriminator": d_rows},
+                    "cpu_noise_scale": noise_scale, "launches_by_rank": per_rank,
+                    "one_process_s": one["seconds"],
+                    "rank_step_s": [r["seconds"] for r in v3],
+                    "rank_peak_memory_gb": [r["peak_memory_gb"] for r in v3]},
+        "fastpitch_tp": {"mesh": [1, 2], "batch": PAR_FP_B, "bucket": [64, 256],
+                         "loss_rel_err_max": tp_rel, **rep,
+                         "losses": [m["loss"] for m in fp_one["metas"]],
+                         "one_process_s": fp_one["seconds"],
+                         "rank_s": [r["fastpitch_tp"]["seconds"] for r in ranks]},
+        "trainer": {"gam": tr[0]["gam"], "seconds": [t["seconds"] for t in tr],
+                    "resume_seconds": [t["resume_seconds"] for t in tr],
+                    "files": tr[0]["files"], "checkpoint": tr[0]["last_save"],
+                    "loss": tr[0]["train"]},
+        "nccl_one_rank": nccl1, "nccl_two_cards": nccl2,
+        "rank_peak_memory_gb": [r["peak_memory_gb"] for r in ranks], "spawn_seconds": spawn_s,
+        "seconds": time.perf_counter() - t_phase, "gpu": smi}
+    emit("parallel", **record)
+    return launches, record
+
+
+def waveglow_phase(dev, smi: str):
+    """Phase 23, ``waveglow``: ``WaveGlowConfig()`` at full width (weights from
+    a seed, the couplings' zero-initialised end layers drawn small so that
+    every flow acts) on ``WG_SECONDS`` of mel: ``infer`` on the card and on
+    the CPU from the same noise (the waveform within 1e-4 of its max abs),
+    the denoiser at strengths 0 and 1 likewise, a clip's time on the card,
+    and SSIM card against CPU within 1e-5. Launches neither kernel, in JAX
+    as in the port. Returns the path's launch counts and the record."""
+    from xva_trainer_tpu_torch.models.waveglow import WaveGlow, WaveGlowConfig, WaveGlowDenoiser
+    from xva_trainer_tpu_torch.ops import _cuda
+    from xva_trainer_tpu_torch.ops.ssim import ssim
+
+    t_phase = time.perf_counter()
+    cfg = WaveGlowConfig()
+    torch.manual_seed(70)
+    cpu_model = WaveGlow(cfg).eval()
+    g = torch.Generator().manual_seed(71)
+    with torch.no_grad():
+        for c in cpu_model.couplings:
+            c.end.weight.copy_(torch.randn(c.end.weight.shape, generator=g) * 0.02)
+            c.end.bias.copy_(torch.randn(c.end.bias.shape, generator=g) * 0.02)
+    model = WaveGlow(cfg).eval()
+    model.load_state_dict(cpu_model.state_dict())
+    model.to(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    t_mel = int(math.ceil(WG_SECONDS * SR / HOP))
+    mel = torch.randn((1, t_mel, 80), generator=g) - 4.0
+    tg = t_mel * cfg.hop_length // cfg.n_group
+    n_early = (cfg.n_flows - 1) // cfg.n_early_every
+    noise = [torch.randn((1, tg, cfg.flow_sizes()[-1]), generator=g)] + [
+        torch.randn((1, tg, cfg.n_early_size), generator=g) for _ in range(n_early)]
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    with torch.no_grad():
+        wav = model.infer(mel.to(dev), 0.6, noise=[n.to(dev) for n in noise])
+        torch.cuda.synchronize()
+        ref = cpu_model.infer(mel, 0.6, noise=noise)
+        wav_err = float((wav.cpu() - ref).abs().max() / ref.abs().max())
+        den, den_cpu = WaveGlowDenoiser(model), WaveGlowDenoiser(cpu_model)
+        den_err = {}
+        for s in (0.0, 1.0):
+            a, b = den(wav[0], s).cpu(), den_cpu(ref[0], s)
+            den_err[str(s)] = float((a - b).abs().max() / b.abs().max())
+        clip_ms = cuda_ms(lambda: model.infer(mel.to(dev), 0.6,
+                                              generator=torch.Generator(dev).manual_seed(0)),
+                          iters=5)
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    imgs = torch.rand((4, 1, 80, t_mel), generator=g)
+    other = torch.clamp(imgs + 0.1 * torch.randn(imgs.shape, generator=g), 0, 1)
+    s_gpu = ssim(imgs.to(dev), other.to(dev), size_average=False).cpu()
+    s_cpu = ssim(imgs, other, size_average=False)
+    ssim_err = float((s_gpu - s_cpu).abs().max())
+    record = {"params": n_params, "mel_frames": t_mel, "samples": int(wav.shape[-1]),
+              "finite": bool(torch.isfinite(wav).all()), "wav_rel_err": wav_err,
+              "denoiser_rel_err": den_err, "clip_ms": clip_ms,
+              "real_time_factor": WG_SECONDS * 1e3 / clip_ms, "ssim_gpu": s_gpu.tolist(),
+              "ssim_abs_err": ssim_err, "peak_memory_gb": peak, "launches": launches,
+              "seconds": time.perf_counter() - t_phase, "gpu": smi}
+    emit("waveglow", **record)
+    check(record["finite"] and wav.shape[-1] == t_mel * HOP and wav_err < 1e-4
+          and max(den_err.values()) < 1e-4 and ssim_err < 1e-5,
+          f"waveglow: wav {wav_err}, denoiser {den_err}, ssim {ssim_err}")
+    return launches, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5112,6 +5752,13 @@ def main() -> int:
         # the three model tools and the text-quality pass, on the same clips
         mt_launches, mt_record = model_tools_phase(dev, smi, data_work, data_ctx["dataset"])
         emit("model_tools", **mt_record)
+        # the training step (its CPU noise scale holds the parallel step's
+        # updates), then data and tensor parallelism on the data phase's clips
+        torch.cuda.empty_cache()
+        train_launches, train = train_phases(cfg_m, dev)
+        par_launches, _ = parallel_phase(cfg_m, dev, smi, data_ctx, data_work,
+                                         train["cpu_noise_scale"])
+        wg_launches, _ = waveglow_phase(dev, smi)
         # the least time for the v2 build's launches (mel only): each group's
         # bound, summed
         fp_build = fp_record["cache_build"]
@@ -5168,11 +5815,10 @@ def main() -> int:
          v2_by_slot=v2_shapes,
          v2_sums={k: v for k, v in fp_build.items() if k.startswith("fused_stft_all_")},
          gpu=smi)
-    train_launches, train = train_phases(cfg_m, dev)
     by_path = {"serve": launches, "data": data_launches, "loop": loop_launches,
                "multilingual": ml_launches, "fastpitch": fp_launches, "hifigan": hg_launches,
                "server": srv_launches, "tools": tools_launches, "model_tools": mt_launches,
-               "train": train_launches}
+               "train": train_launches, "parallel": par_launches, "waveglow": wg_launches}
 
     kernels = [{
         "name": "fused_stft", "route": "cuda",
@@ -5234,7 +5880,8 @@ def main() -> int:
                                          ("fastpitch", ["fused_stft", "mas"]),
                                          ("hifigan", ["fused_stft"]),
                                          ("server", ["fused_stft", "mas"]),
-                                         ("train", ["fused_stft", "mas"]))
+                                         ("train", ["fused_stft", "mas"]),
+                                         ("parallel", ["fused_stft", "mas"]))
                for k in ks if by_path[p][k] < 1]
     check(not missing, f"a main path launched no {missing}")
     check(all(train_launches[k] >= train["timed_steps"] for k in ("fused_stft", "mas")),
@@ -5248,6 +5895,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--rank"]:  # a rank of the parallel phase
+            sys.exit(rank_worker(sys.argv[2:]))
         sys.exit(main())
     except Exception as e:  # report and fail: no result line
         import traceback

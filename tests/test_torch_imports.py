@@ -52,7 +52,8 @@ def test_port_imports_no_jax():
     for m in ("app.server", "app.manager", "app.ws", "utils.config", "utils.telemetry",
               "train.profiler", "tools", "cli", "demo", "models.whisper", "models.wav2vec2",
               "models.enhance", "interop.whisper_map", "interop.wav2vec2_map",
-              "interop.safetensors_io"):
+              "interop.safetensors_io", "parallel.distributed", "parallel.mesh", "parallel.tp",
+              "parallel.draws", "models.waveglow", "models.waveglow.model", "ops.ssim"):
         assert "xva_trainer_tpu_torch." + m in mods
 
 

@@ -198,7 +198,7 @@ def draws_of(out, b, sdp_noise=None):
         wav = wav * np.float32(1.0 / 32767.0)
     seg = np.asarray(out["waveform_seg"])[..., 0]
     u = []
-    for i in range(B):
+    for i in range(len(b["slens"])):
         max_start = max(int(b["slens"][i]) - JCFG.spec_segment_size, 0)
         errs = [np.abs(wav[i, s * HOP: s * HOP + SEG] - seg[i]).max()
                 for s in range(max_start + 1)]

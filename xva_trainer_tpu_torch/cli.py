@@ -27,29 +27,77 @@ import os
 import sys
 
 
+# the other ranks' wait for rank 0's cache build, a clip: the build of 256
+# clips (1 153 s of audio: loudness, speaker embeddings, features) took
+# 10.8 s on one H100, 0.042 s a clip
+BUILD_WAIT_S_PER_CLIP = 1.0
+
+
+def build_wait_seconds(dataset: str) -> float:
+    """How long ranks 1..N-1 wait for rank 0's build of ``dataset``'s cache:
+    BUILD_WAIT_S_PER_CLIP a wav, at least 10 minutes."""
+    wavs = os.path.join(dataset, "wavs")
+    n = len(os.listdir(wavs)) if os.path.isdir(wavs) else 0
+    return max(600.0, BUILD_WAIT_S_PER_CLIP * n)
+
+
 def cmd_train_v3(args):
+    """One process on one card; under ``python -m torch.distributed.run
+    --nproc-per-node N`` each of the N ranks trains on its card
+    (``cuda:LOCAL_RANK``; gloo ranks on the CPU with ``--device cpu``) over a
+    data mesh of N: rank 0 builds the feature cache and the speaker
+    embedding first, then every rank reads them; rank 0 alone writes the
+    checkpoints, the logs and the export. The other ranks wait for the build
+    in a gloo group of their own, whose time limit grows with the dataset
+    (``build_wait_seconds``), not in the training group, whose 10-minute
+    limit a large build would outlast."""
     from .data.text import v3_text_to_ids
     from .data.xva_dataset import XvaBatcher, XvaFeatureCache, get_dataset_embedding
     from .models.speaker_encoder import SpeakerEncoder
+    from .parallel.distributed import initialize_distributed, local_device
+    from .parallel.mesh import make_mesh
     from .train.xvapitch_trainer import XVAPitchTrainer, XvaTrainConfig
 
+    device, mesh = args.device, None
+    if initialize_distributed(device=args.device if args.device == "cpu" else None):
+        import datetime
+
+        import torch.distributed as dist
+
+        if args.device != "cpu":
+            device = local_device()
+        mesh = make_mesh()
+        build_wait = dist.new_group(backend="gloo", timeout=datetime.timedelta(
+            seconds=build_wait_seconds(args.dataset)))
+    main = mesh is None or mesh.is_main
     # same tokenizer the server / cli tts use — train and inference must agree
     tp = v3_text_to_ids(args.lang)
-    cache = XvaFeatureCache(args.dataset, tp, lang=args.lang, device=args.device)
-    print("building feature cache...")
-    cache.build(progress=lambda d, t: print(f"\r{d}/{t}", end=""))
-    emb = get_dataset_embedding(args.dataset, SpeakerEncoder(device=args.device))
+
+    def cache_and_embedding():
+        cache = XvaFeatureCache(args.dataset, tp, lang=args.lang, device=device)
+        if main:
+            print("building feature cache...")
+        cache.build(progress=(lambda d, t: print(f"\r{d}/{t}", end="")) if main else None)
+        return cache, get_dataset_embedding(args.dataset, SpeakerEncoder(device=device))
+
+    if main:
+        cache, emb = cache_and_embedding()
+    if mesh is not None:  # the other ranks read what rank 0 wrote
+        dist.barrier(group=build_wait)
+        if not main:
+            cache, emb = cache_and_embedding()
     batcher = XvaBatcher([cache], batch_size=args.batch_size, d_vector=emb["main"])
     cfg = XvaTrainConfig(output_dir=args.output, batch_size=args.batch_size,
                          target_bs=args.target_bs)
-    trainer = XVAPitchTrainer(batcher, cfg, device=args.device)
+    trainer = XVAPitchTrainer(batcher, cfg, device=device, mesh=mesh)
     trainer.setup(resume=not args.no_resume)
     result = trainer.train(max_steps=args.max_steps)
-    print(json.dumps(result))
     voice = os.path.basename(args.dataset.rstrip("/"))
-    print("exported:", trainer.export(voice, lang=args.lang,
-                                      base_emb=emb["main"],
-                                      other_embs=emb["others"].tolist()))
+    path = trainer.export(voice, lang=args.lang, base_emb=emb["main"],
+                          other_embs=emb["others"].tolist())
+    if main:
+        print(json.dumps(result))
+        print("exported:", path)
 
 
 def cmd_train_v2(args):

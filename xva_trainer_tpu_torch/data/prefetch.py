@@ -1,17 +1,21 @@
 """Background host feed: overlap collate and the host-to-device copy with
 the device's work.
 
-The port's copy of ``xva_trainer_tpu/data/prefetch.py`` (standard library
-only). A :class:`Prefetcher` runs collate and the batch's transfer on a
+The port's copy of ``xva_trainer_tpu/data/prefetch.py``, with the
+transfer of a batch to the card (``batch_to_device``). A :class:`Prefetcher` runs collate and the batch's transfer on a
 worker thread with a bounded queue, so the training loop only dequeues ready
 batches and launches steps. numpy copies and the transfer release the GIL,
 so this overlaps even on one core.
 """
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
-from typing import Any, Callable, Iterable, Iterator, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional
+
+import numpy as np
+import torch
 
 _SENTINEL = object()
 
@@ -84,3 +88,27 @@ class Prefetcher:
             except queue.Empty:
                 break
         self._thread.join(timeout=5.0)
+
+
+def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """A collated numpy batch → tensors on ``device``: the transfer that
+    runs in a ``Prefetcher``'s transform, so on the worker thread
+    (``parallel/mesh.py::shard_batch`` takes a rank's slice first).
+
+    ``"ids"`` (names, for the loss sorting) stays behind; int32 index arrays
+    become int64. The copies start from pinned memory without blocking, on
+    the device's default stream, the stream the training step runs on: the
+    step queued after them waits for them, and the caching host allocator
+    does not hand a pinned buffer out again before its copy has finished."""
+    dev = torch.device(device)
+    out = {}
+    on_card = dev.type == "cuda"
+    with torch.cuda.stream(torch.cuda.default_stream(dev)) if on_card else contextlib.nullcontext():
+        for k, v in batch.items():
+            if k == "ids":
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if on_card:
+                t = t.pin_memory().to(dev, non_blocking=True)
+            out[k] = t.long() if t.dtype == torch.int32 else t
+    return out

@@ -435,7 +435,7 @@ class XvaBatcher:
 
     Its numpy generator draws what the JAX batcher's draws, in the same
     order, so both give equal batches from one cache and seed. Batches are
-    numpy; ``train/xvapitch_trainer.py::batch_to_device`` moves one to the
+    numpy; ``data/prefetch.py::batch_to_device`` moves one to the
     card."""
 
     # decoder and discriminator activations scale with the batch alone (they

@@ -222,3 +222,28 @@ def enhancer_state_dict(jax_params_as_numpy: Dict) -> Dict[str, torch.Tensor]:
     both spatial axes (kind ``convT2d``)."""
     p = jax_params_as_numpy.get("params", jax_params_as_numpy)
     return _tensors(apply_carry(p, enhancer_rules(_count(p, "ConvTranspose_"))))
+
+
+def waveglow_rules(cfg):
+    """flax's names of ``WaveGlow`` → the port's modules
+    (``models/waveglow/model.py``)."""
+    from .mapping import Rule
+    from .xvapitch_map import _wn_rules
+
+    rules = [Rule("upsample.weight", ("upsample", "kernel"), "convT1d"),
+             Rule("upsample.bias", ("upsample", "bias"), "id")]
+    for k in range(cfg.n_flows):
+        tk, fk = f"couplings.{k}", f"couplings_{k}"
+        rules.append(Rule(f"convs.{k}.W", (f"convs_{k}", "W"), "id"))
+        for name in ("start", "end"):
+            rules += [Rule(f"{tk}.{name}.weight", (fk, name, "kernel"), "linear"),
+                      Rule(f"{tk}.{name}.bias", (fk, name, "bias"), "id")]
+        rules += _wn_rules(f"{tk}.wn", (fk, "wn"), cfg.wn_layers, cond=True)
+    return rules
+
+
+def waveglow_state_dict(jax_params_as_numpy: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``WaveGlow`` parameters (numpy) → the fp32 state dict of the
+    port's ``WaveGlow``: the upsampler's kernel flipped (kind ``convT1d``),
+    each weight norm carried as flax holds it."""
+    return _tensors(apply_carry(jax_params_as_numpy, waveglow_rules(cfg)))

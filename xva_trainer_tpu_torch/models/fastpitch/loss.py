@@ -14,6 +14,11 @@ a large finite value (its ``log_epsilon`` of -1e5 stands for log 0) and
 ``F.ctc_loss`` gives inf, which would trip the NaN guard where JAX takes the
 step. A batch with such an item therefore goes through ``ctc_loss_optax``,
 optax's forward recursion in plain torch, for every item.
+
+Under data parallelism each stage's loss takes the data ``group``: the
+masked sums divide by the global mask's sum, and the CTC's mean over the
+rows is the local mean over the group's size, so that the terms summed over
+the group are the global batch's loss. With no group nothing changes.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ...parallel.mesh import global_sum, group_size
 
 DUR_SCALE = 0.1
 PITCH_SCALE = 0.1
@@ -75,7 +82,7 @@ def ctc_loss_optax(logprobs, logit_paddings, label_paddings) -> torch.Tensor:
 
 
 def attention_ctc_loss(attn_logprob, in_lens, out_lens,
-                       all_aligned: Optional[bool] = None) -> torch.Tensor:
+                       all_aligned: Optional[bool] = None, group=None) -> torch.Tensor:
     """The aligner's monotonic CTC, averaged over all B rows.
 
     attn_logprob (B, T_mel, T_text); the labels of item b are 1..in_lens[b].
@@ -92,36 +99,38 @@ def attention_ctc_loss(attn_logprob, in_lens, out_lens,
     else:
         per_item = ctc_loss_optax(logprobs, 1.0 - _len_mask(out_lens, T_mel),
                                   1.0 - _len_mask(in_lens, T_text))
-    return per_item.mean()
+    w = group_size(group)
+    return per_item.mean() / w if w > 1 else per_item.mean()
 
 
-def attention_binarization_loss(attn_hard, attn_soft, eps=1e-12):
+def attention_binarization_loss(attn_hard, attn_soft, eps=1e-12, group=None):
     """-mean log soft-prob under the hard path (attn_loss_function.py:47-54)."""
     sel = torch.log(torch.clamp(attn_soft, min=eps)) * attn_hard
-    return -sel.sum() / torch.clamp(attn_hard.sum(), min=1.0)
+    return -sel.sum() / torch.clamp(global_sum(attn_hard.sum(), group), min=1.0)
 
 
-def stage1_loss(out, in_lens, out_lens, kl_weight, all_aligned: Optional[bool] = None):
-    attn_loss = attention_ctc_loss(out["attn_logprob"], in_lens, out_lens, all_aligned)
-    bin_loss = attention_binarization_loss(out["attn_hard"], out["attn_soft"])
+def stage1_loss(out, in_lens, out_lens, kl_weight, all_aligned: Optional[bool] = None,
+                group=None):
+    attn_loss = attention_ctc_loss(out["attn_logprob"], in_lens, out_lens, all_aligned, group)
+    bin_loss = attention_binarization_loss(out["attn_hard"], out["attn_soft"], group=group)
     loss = attn_loss * ATTN_SCALE + kl_weight * bin_loss
     return loss, {"loss": loss, "attn_loss": attn_loss, "kl_loss": bin_loss * kl_weight}
 
 
-def stage2_loss(out, in_lens):
+def stage2_loss(out, in_lens, group=None):
     dur_mask = _len_mask(in_lens, out["log_dur_pred"].shape[1])
     log_dur_tgt = torch.log(out["durations"].float() + 1.0)
     mse = (out["log_dur_pred"] - log_dur_tgt) ** 2
-    dur_loss = (mse * dur_mask).sum() / torch.clamp(dur_mask.sum(), min=1.0)
+    dur_loss = (mse * dur_mask).sum() / torch.clamp(global_sum(dur_mask.sum(), group), min=1.0)
     loss = dur_loss * DUR_SCALE
     return loss, {"loss": loss, "duration_predictor_loss": dur_loss}
 
 
-def stage3_loss(out, mel_tgt, in_lens):
+def stage3_loss(out, mel_tgt, in_lens, group=None):
     """Pitch and energy MSE, plus the mel MSE (the reference logs stage 3's)."""
-    mel_loss = _mel_mse(out["mel_out"], mel_tgt)
+    mel_loss = _mel_mse(out["mel_out"], mel_tgt, group)
     dur_mask = _len_mask(in_lens, out["pitch_pred"].shape[1])
-    denom = torch.clamp(dur_mask.sum(), min=1.0)
+    denom = torch.clamp(global_sum(dur_mask.sum(), group), min=1.0)
     pitch_loss = ((out["pitch_pred"][..., 0] - out["pitch_tgt"][:, 0, :]) ** 2
                   * dur_mask).sum() / denom
     energy_loss = ((out["energy_pred"] - out["energy_tgt"]) ** 2 * dur_mask).sum() / denom
@@ -130,14 +139,14 @@ def stage3_loss(out, mel_tgt, in_lens):
                   "energy_loss": energy_loss}
 
 
-def stage4_loss(out, mel_tgt):
-    mel_loss = _mel_mse(out["mel_out"], mel_tgt)
+def stage4_loss(out, mel_tgt, group=None):
+    mel_loss = _mel_mse(out["mel_out"], mel_tgt, group)
     return mel_loss, {"loss": mel_loss, "mel_loss": mel_loss}
 
 
-def _mel_mse(mel_out, mel_tgt):
+def _mel_mse(mel_out, mel_tgt, group=None):
     """MSE over the nonzero target (reference loss_function.py:105-112);
     (B, T_mel, n_mel) channels-last."""
     mel_mask = (mel_tgt != 0).float()
     mse = (mel_out - mel_tgt) ** 2 * mel_mask
-    return mse.sum() / torch.clamp(mel_mask.sum(), min=1.0)
+    return mse.sum() / torch.clamp(global_sum(mel_mask.sum(), group), min=1.0)

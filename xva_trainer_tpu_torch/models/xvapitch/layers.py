@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.spline import rational_quadratic_spline
+from ...parallel import draws
 from ..conv import same_conv1d, weight_norm
 
 
@@ -40,7 +41,7 @@ def dropout(x: torch.Tensor, p: float, training: bool,
         return x
     if generator is None:
         raise ValueError("dropout in training mode needs a torch.Generator to draw its mask")
-    keep = torch.rand(x.shape, generator=generator, device=generator.device).to(x.device) >= p
+    keep = draws.rand(x.shape, generator).to(x.device) >= p
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 

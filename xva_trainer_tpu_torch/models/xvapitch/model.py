@@ -27,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.mas import maximum_path
+from ...parallel import draws
 from ..hifigan.models import Generator as HifiganGenerator, HifiganConfig
 from .modules import (
     PosteriorEncoder,
@@ -96,7 +97,7 @@ def rand_segments(x: torch.Tensor, x_lengths: torch.Tensor, segment_size: int, *
     if u is None:
         if generator is None:
             raise ValueError("pass the segment draw u or a torch.Generator to draw it from")
-        u = torch.rand((B,), generator=generator, device=generator.device)
+        u = draws.rand((B,), generator)
     starts = (u.to(x.device).float() * (max_start + 1).float()).long()
     starts = torch.clamp(starts, max=max(T - segment_size, 0))
     return segment(x, starts, segment_size), starts

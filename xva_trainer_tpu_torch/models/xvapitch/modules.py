@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel import draws
 from .layers import (
     ConvFlow,
     DilatedDepthSeparableConv,
@@ -40,7 +41,7 @@ def standard_normal(shape, like: torch.Tensor,
     this raises rather than read the global RNG."""
     if generator is None:
         raise ValueError("pass the noise tensor or a torch.Generator to draw it from")
-    return torch.randn(shape, generator=generator, device=generator.device).to(like)
+    return draws.randn(shape, generator).to(like)
 
 
 def _cond3(g: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

@@ -16,9 +16,11 @@ python/fastpitch1_1/xva_train.py):
   (:825-832), frames a second, ``training.log`` and ``graphs.json``.
 
 The JAX trainer's compile warming (``precompile_stage``,
-``precompile_align``, ``first_dispatch_event``), its abstract states and
-its mesh are XLA machinery and have no counterpart: the port runs eagerly
-on one card. Its checkpoints are the port's own files; an output directory
+``precompile_align``, ``first_dispatch_event``) and its abstract states are
+XLA machinery and have no counterpart: the port runs eagerly. The stage
+step takes a data-parallel mesh (``make_stage_step(mesh=...)``); the
+trainer itself runs on one card (its mesh is the next slice's work). Its
+checkpoints are the port's own files; an output directory
 that holds the JAX package's orbax checkpoints and none of the port's is
 refused, not started over.
 """
@@ -34,16 +36,17 @@ import torch
 
 from .. import resolve_device
 from ..data.dataset import BucketBatcher, FeatureCache
-from ..data.prefetch import Prefetcher
+from ..data.prefetch import Prefetcher, batch_to_device
 from ..models.fastpitch import FastPitch, FastPitchConfig
 from ..models.fastpitch import loss as fp_loss
 from ..ops.attn_prior import beta_binomial_attn_prior
+from ..parallel.draws import shard_draws
 from . import amp
 from .checkpoints import CheckpointManager, export_fastpitch_v2
 from .early_stop import EarlyStopState, fastpitch_min_epochs, fastpitch_target_delta
 from .metrics import GraphsWriter, ThroughputMeter, TrainingLogger, make_tensorboard
 from .optim import LambOptimizer, fastpitch_stage_mask
-from .xvapitch_trainer import batch_to_device, finite_or_zero
+from .xvapitch_trainer import data_shard, finite_or_zero, global_losses, sum_over_data
 
 
 @dataclasses.dataclass
@@ -116,7 +119,7 @@ def make_align_step(model: FastPitch, device_prior: bool) -> Callable:
 
 
 def make_stage_step(model: FastPitch, stage: int, opt: LambOptimizer, use_gt_durs: bool = False,
-                    use_amp: bool = True, device_prior: bool = False) -> Callable:
+                    use_amp: bool = True, device_prior: bool = False, mesh=None) -> Callable:
     """One micro-step of ``stage``: ``step(batch, kl_weight, generator)`` →
     the losses (device tensors) with ``skipped_nan``. Updates ``model`` and
     ``opt`` in place.
@@ -130,7 +133,16 @@ def make_stage_step(model: FastPitch, stage: int, opt: LambOptimizer, use_gt_dur
     - A batch may carry ``"all_aligned"`` (a host bool: every item has at
       least as many frames as tokens), which spares the stage-1 CTC a read
       of the lengths from the device.
+    - ``mesh`` (``parallel/mesh.py``) with a data axis of W > 1: the batch is
+      this rank's slice of the global batch; the dropout masks are drawn for
+      the global batch and sliced, the loss is this rank's share of the
+      global batch's, the gradients are summed over the data group (one flat
+      bucket), and the NaN skip and the returned losses read the global
+      loss, as in ``make_v3_step``. A model cut by ``parallel/tp.py::
+      shard_params`` over the mesh's model axis runs its FFNs tensor-parallel
+      inside the forward; the LAMB trust ratio reads whole-tensor norms.
     """
+    group, index, count = data_shard(mesh)
     params = list(model.parameters())
 
     def forward(batch, generator):
@@ -154,22 +166,24 @@ def make_stage_step(model: FastPitch, stage: int, opt: LambOptimizer, use_gt_dur
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         batch = _cast_up(batch)
         dev = params[0].device
+        generator = shard_draws(generator, index, count)
         with amp.autocast(dev, use_amp):
             out = forward(batch, generator)
         out = amp.to_fp32(out)
         if stage == 1:
             loss, meta = fp_loss.stage1_loss(out, batch["in_lens"], batch["mel_lens"],
-                                             kl_weight, batch.get("all_aligned"))
+                                             kl_weight, batch.get("all_aligned"), group=group)
         elif stage == 2:
-            loss, meta = fp_loss.stage2_loss(out, batch["in_lens"])
+            loss, meta = fp_loss.stage2_loss(out, batch["in_lens"], group=group)
         elif stage == 3:
-            loss, meta = fp_loss.stage3_loss(out, batch["mel"], batch["in_lens"])
+            loss, meta = fp_loss.stage3_loss(out, batch["mel"], batch["in_lens"], group=group)
         else:
-            loss, meta = fp_loss.stage4_loss(out, batch["mel"])
+            loss, meta = fp_loss.stage4_loss(out, batch["mel"], group=group)
         grads = list(torch.autograd.grad(loss, params, allow_unused=True))
-        opt.step(finite_or_zero(grads, loss))
-        meta = {k: v.detach() for k, v in meta.items()}
-        meta["skipped_nan"] = (~torch.isfinite(loss)).float()
+        meta = global_losses(meta, group)
+        sum_over_data(grads, group)
+        opt.step(finite_or_zero(grads, meta["loss"]))
+        meta["skipped_nan"] = (~torch.isfinite(meta["loss"])).float()
         return meta
 
     return step

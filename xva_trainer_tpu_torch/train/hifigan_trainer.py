@@ -37,7 +37,7 @@ import torch
 from .. import resolve_device
 from ..data.audio_io import load_wav
 from ..data.dataset import read_metadata
-from ..data.prefetch import Prefetcher
+from ..data.prefetch import Prefetcher, batch_to_device
 from ..models.hifigan.models import (Generator, HifiganConfig, HifiganDiscriminator,
                                      discriminator_loss, feature_matching_loss,
                                      generator_adv_loss)
@@ -49,7 +49,6 @@ from .early_stop import (HIFIGAN_MIN_EPOCHS, HIFIGAN_SPAN, HIFIGAN_TARGET_DELTA,
                          EarlyStopState)
 from .metrics import GraphsWriter, ThroughputMeter, TrainingLogger, make_tensorboard
 from .optim import GanOptimizer
-from .xvapitch_trainer import batch_to_device
 
 SEGMENT_SIZE = 8192  # config_v1.json segment_size
 MEL_WEIGHT = 45.0    # reference xva_train.py:504 (mel L1 ×45)

@@ -19,12 +19,16 @@ from typing import Dict, List, Optional
 class TrainingLogger:
     """print_and_log-compatible: full log + a mutable last status line."""
 
-    def __init__(self, output_dir: str, also_print: bool = True):
+    def __init__(self, output_dir: str, also_print: bool = True, write: bool = True):
+        """``write=False`` keeps the log in memory only (a data-parallel
+        rank other than 0)."""
         self.output_dir = output_dir
-        os.makedirs(output_dir, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(output_dir, exist_ok=True)
         self.path = os.path.join(output_dir, "training.log")
         self.lines: List[str] = []
-        if os.path.exists(self.path):
+        if write and os.path.exists(self.path):
             with open(self.path, encoding="utf-8") as f:
                 self.lines = f.read().split("\n")
         self.status: str = ""
@@ -41,6 +45,8 @@ class TrainingLogger:
         self._flush()
 
     def _flush(self) -> None:
+        if not self.write:
+            return
         with open(self.path, "w", encoding="utf-8") as f:
             f.write("\n".join(self.lines + ([self.status] if self.status else [])))
 
@@ -49,10 +55,13 @@ class GraphsWriter:
     """graphs.json: {"stages": {stage: {loss: [[iter, v]...],
     loss_delta: [[iter, v]...], target_delta: t}}}."""
 
-    def __init__(self, output_dir: str, stages, target_deltas: Dict[int, float]):
+    def __init__(self, output_dir: str, stages, target_deltas: Dict[int, float],
+                 write: bool = True):
         self.path = os.path.join(output_dir, "graphs.json")
-        os.makedirs(output_dir, exist_ok=True)
-        if os.path.exists(self.path):
+        self.write = write
+        if write:
+            os.makedirs(output_dir, exist_ok=True)
+        if write and os.path.exists(self.path):
             with open(self.path) as f:
                 self.data = json.load(f)
         else:
@@ -73,6 +82,8 @@ class GraphsWriter:
         self._flush()
 
     def _flush(self) -> None:
+        if not self.write:
+            return
         with open(self.path, "w") as f:
             json.dump(self.data, f)
 

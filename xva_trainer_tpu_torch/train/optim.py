@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 class GanOptimizer:
@@ -192,6 +193,20 @@ def noam_warmup_schedule(base_lr: float, warmup_steps: int):
     return schedule
 
 
+def _whole_tensor_norms(params, p_norm: List, u_norm: List) -> None:
+    """Replace the norms of tensor-parallel blocks (``parallel/tp.py``:
+    parameters with a ``tp_group``) by their whole tensors' norms: the
+    squares summed over the model group, in one all-reduce."""
+    cut = [i for i, p in enumerate(params) if getattr(p, "tp_group", None) is not None]
+    if not cut:
+        return
+    sq = torch.stack([p_norm[i] for i in cut] + [u_norm[i] for i in cut]) ** 2
+    dist.all_reduce(sq, group=params[cut[0]].tp_group)
+    whole = torch.sqrt(sq)
+    for j, i in enumerate(cut):
+        p_norm[i], u_norm[i] = whole[j], whole[len(cut) + j]
+
+
 class LambOptimizer:
     """FastPitch's optimiser as ``make_fastpitch_optimizer`` builds it in
     optax: ``MultiSteps(multi_transform({"train": lamb, "freeze":
@@ -303,8 +318,9 @@ class LambOptimizer:
         if self.weight_decay:
             torch._foreach_add_(upd, params, alpha=self.weight_decay)
         # the trust ratio, per tensor, on the device
-        p_norm = torch._foreach_norm(params)
-        u_norm = torch._foreach_norm(upd)
+        p_norm = list(torch._foreach_norm(params))
+        u_norm = list(torch._foreach_norm(upd))
+        _whole_tensor_norms(params, p_norm, u_norm)
         ratios = [torch.where((pn == 0) | (un == 0), 1.0, pn / un)
                   for pn, un in zip(p_norm, u_norm)]
         torch._foreach_mul_(upd, ratios)

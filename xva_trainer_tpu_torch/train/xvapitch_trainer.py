@@ -24,7 +24,6 @@ field is left out of its config.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import math
@@ -38,13 +37,17 @@ import torch.nn as nn
 
 from .. import resolve_device
 from ..data.audio_io import load_wav, save_wav
-from ..data.prefetch import Prefetcher
+from ..data.prefetch import Prefetcher, batch_to_device
 from ..data.xva_dataset import XvaBatcher, lang_to_id
 from ..models.xvapitch import VitsDiscriminator, XVAPitch, XVAPitchConfig
 from ..models.xvapitch import losses as v_losses
 from ..ops.fused_stft import mel_spectrogram_fused
 from ..ops.loudness import normalize_ebu_r128
 from ..ops.stft import DEFAULT_MEL
+from ..parallel.distributed import broadcast_from_host0
+from ..parallel.draws import shard_draws
+from ..parallel.mesh import (Mesh, all_gather_rows, all_reduce_sum, commit_replicated,
+                             make_mesh, shard_batch)
 from . import amp
 from .checkpoints import CheckpointManager, export_xvapitch_v3
 from .metrics import GraphsWriter, ThroughputMeter, TrainingLogger, make_tensorboard
@@ -162,30 +165,6 @@ def materialize_spec(batch: Dict[str, torch.Tensor], hop: int = 256):
     return lin[:, :, :frames], wav.transpose(1, 2)
 
 
-def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """A collated numpy batch → tensors on ``device``: the one-card
-    counterpart of the JAX package's ``parallel/mesh.py::shard_batch``, and
-    like it the ``Prefetcher``'s transform, so it runs on the worker thread.
-
-    ``"ids"`` (names, for the loss sorting) stays behind; int32 index arrays
-    become int64. The copies start from pinned memory without blocking, on
-    the device's default stream, the stream the training step runs on: the
-    step queued after them waits for them, and the caching host allocator
-    does not hand a pinned buffer out again before its copy has finished."""
-    dev = torch.device(device)
-    out = {}
-    on_card = dev.type == "cuda"
-    with torch.cuda.stream(torch.cuda.default_stream(dev)) if on_card else contextlib.nullcontext():
-        for k, v in batch.items():
-            if k == "ids":
-                continue
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if on_card:
-                t = t.pin_memory().to(dev, non_blocking=True)
-            out[k] = t.long() if t.dtype == torch.int32 else t
-    return out
-
-
 def preprocess_audio(dataset_path: str, progress=None) -> int:
     """EBU R128 loudness normalisation of ``wavs/`` into
     ``wavs_postprocessed/`` before training (reference xva_train.py
@@ -254,9 +233,45 @@ def _forward(model: XVAPitch, batch, linear, wav, hifi_only: bool, *, noise, dp_
                             generator=generator)
 
 
+def data_shard(mesh: Optional[Mesh]):
+    """(data group, slice index, slice count) of a mesh; (None, 0, 1) for no
+    mesh or a data axis of 1."""
+    if mesh is None or mesh.n_data == 1:
+        return None, 0, 1
+    return mesh.data_group, mesh.data_index, mesh.n_data
+
+
+def _rows(t: Optional[torch.Tensor], index: int, count: int):
+    """Slice ``index`` of ``count`` of a global-batch draw's rows."""
+    if t is None or count == 1:
+        return t
+    b = t.shape[0] // count
+    return t[index * b:(index + 1) * b]
+
+
+def sum_over_data(grads: Sequence[Optional[torch.Tensor]], group) -> None:
+    """Sum the gradients over the data group in place, as one flat bucket
+    (the Nones, which every rank has alike, stay out)."""
+    if group is not None:
+        all_reduce_sum([g for g in grads if g is not None], group)
+
+
+def global_losses(meta: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """``meta`` detached, its scalars summed over the data group in one
+    all-reduce (each rank's share of a loss → the global batch's loss); the
+    per-sample vectors stay this rank's."""
+    meta = {k: v.detach() for k, v in meta.items()}
+    if group is not None:
+        scalars = {k: v.float().clone() for k, v in meta.items() if v.dim() == 0}
+        all_reduce_sum(list(scalars.values()), group)
+        meta.update(scalars)
+    return meta
+
+
 def make_v3_step(model: XVAPitch, disc: VitsDiscriminator, g_opt: GanOptimizer,
                  d_opt: GanOptimizer, freeze_post_dec: bool, hifi_only: bool = False,
-                 use_amp: bool = True) -> Callable[..., Dict[str, torch.Tensor]]:
+                 use_amp: bool = True,
+                 mesh: Optional[Mesh] = None) -> Callable[..., Dict[str, torch.Tensor]]:
     """One micro-step: G loss and gradients, D loss and gradients on the
     detached fakes, both optimiser steps (which accumulate ``gam``
     micro-steps). Updates ``model``, ``disc`` and both optimisers in place.
@@ -276,7 +291,18 @@ def make_v3_step(model: XVAPitch, disc: VitsDiscriminator, g_opt: GanOptimizer,
       which would otherwise leave nothing to train).
     - ``use_amp``: bf16 autocast around both models' forwards, the duration
       predictor in fp32, every loss in fp32.
+    - ``mesh`` with a data axis of W > 1: the batch is this rank's slice of
+      the global batch. Every draw is made for the global batch from the
+      same generator state on every rank and sliced (given draws are the
+      global batch's too), the losses are this rank's shares of the global
+      batch's, the gradients are summed over the data group (one flat bucket
+      a model) before the NaN guard, and the guard and the returned losses
+      read the global losses, so that every rank skips together. The
+      per-sample terms stay this rank's. The models are not wrapped in
+      ``DistributedDataParallel``: the step takes its gradients with
+      ``torch.autograd.grad``, which fires no DDP hook.
     """
+    group, index, count = data_shard(mesh)
     g_params = list(model.parameters())
     d_params = list(disc.parameters())
     post_dec = module_mask(model)
@@ -287,6 +313,8 @@ def make_v3_step(model: XVAPitch, disc: VitsDiscriminator, g_opt: GanOptimizer,
     def step(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None, *,
              noise=None, dp_noise=None, seg_u=None) -> Dict[str, torch.Tensor]:
         dev = g_params[0].device
+        generator = shard_draws(generator, index, count)
+        noise, dp_noise, seg_u = (_rows(t, index, count) for t in (noise, dp_noise, seg_u))
         linear, wav = materialize_spec(batch, hop)
         with amp.autocast(dev, use_amp):
             out = _forward(model, batch, linear, wav, hifi_only, noise=noise,
@@ -295,22 +323,26 @@ def make_v3_step(model: XVAPitch, disc: VitsDiscriminator, g_opt: GanOptimizer,
         out = amp.to_fp32(out)
         g_loss, meta = v_losses.generator_loss(
             out, amp.to_fp32(s_fake), amp.to_fp32(f_fake), amp.to_fp32(f_real),
-            language_ids=batch["lang"], spec_lengths=batch["slens"], hifi_only=hifi_only)
+            language_ids=batch["lang"], spec_lengths=batch["slens"], hifi_only=hifi_only,
+            group=group)
         g_grads = list(torch.autograd.grad(g_loss, g_params, allow_unused=True))
 
         with amp.autocast(dev, use_amp):
             s_fake_d, _, s_real_d, _ = disc(out["model_outputs"].detach(),
                                             out["waveform_seg"].detach())
-        d_loss, _ = v_losses.discriminator_loss(amp.to_fp32(s_real_d), amp.to_fp32(s_fake_d))
+        d_loss, _ = v_losses.discriminator_loss(amp.to_fp32(s_real_d), amp.to_fp32(s_fake_d),
+                                                group=group)
         d_grads = list(torch.autograd.grad(d_loss, d_params, allow_unused=True))
 
-        g_grads = finite_or_zero(g_grads, g_loss)
+        meta["loss_disc"] = d_loss
+        meta = global_losses(meta, group)
+        sum_over_data(g_grads, group)
+        sum_over_data(d_grads, group)
+        g_grads = finite_or_zero(g_grads, meta["loss"])
         if zero_post_dec:
             g_grads = zero_module_grads(g_grads, post_dec)
         g_opt.step(g_grads, g_apply)
-        d_opt.step(finite_or_zero(d_grads, d_loss))
-        meta = {k: v.detach() for k, v in meta.items()}
-        meta["loss_disc"] = d_loss.detach()
+        d_opt.step(finite_or_zero(d_grads, meta["loss_disc"]))
         return meta
 
     return step
@@ -321,7 +353,8 @@ def make_v3_loss_eval(model: XVAPitch, use_amp: bool = True):
     batch, to seed the loss-sorted sampler before training (reference
     init_data_losses, xva_train.py:1248-1316). Dropout follows the model's
     mode. ``eval_losses(batch, generator=None, *, noise, dp_noise, seg_u)``
-    → (B,)."""
+    → (B,). A data-parallel rank passes its ``ShardDraws`` as the generator
+    (``parallel/draws.py``) and gets its own rows."""
     hop = model.cfg.hop_length
 
     @torch.no_grad()
@@ -374,8 +407,17 @@ class XVAPitchTrainer:
     not replay the draws an unbroken one would have made, as in JAX), the
     seeding pass's (``cfg.seed + 999``) and one per preview sample.
 
-    On one card the JAX trainer's mesh has no counterpart: the batchers'
-    ``batch_divisor`` stays 1.
+    ``mesh`` (``parallel/mesh.py``; default ``make_mesh()``, the 1 × 1 mesh
+    of one process) spreads the batch over its data axis, as the JAX
+    trainer's does: the batchers' ``batch_divisor`` is the data axis; every
+    rank runs the same batchers from the same seed and takes its slice in
+    the prefetcher's transform (``shard_batch``); the step sums the
+    gradients over the data group; the loss sorting gathers every rank's
+    per-sample losses, so every rank resamples alike; the early stop reads
+    the global losses only. Only rank 0 writes checkpoints, logs, graphs,
+    TensorBoard, previews and the export; a resume loads on rank 0 and
+    reaches the other ranks through ``broadcast_from_host0``. One process
+    with no group runs exactly as without a mesh.
     """
 
     def __init__(
@@ -386,27 +428,33 @@ class XVAPitchTrainer:
         logger: Optional[TrainingLogger] = None,
         priors_batcher: Optional[XvaBatcher] = None,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh or make_mesh()
+        self.is_main = self.mesh.is_main
         self.batcher = batcher
         self.priors_batcher = priors_batcher
         self.cfg = cfg
         for b_ in (batcher, priors_batcher):
             if b_ is not None:
-                b_.batch_divisor = 1
+                b_.batch_divisor = self.mesh.n_data
                 b_.device_spec = cfg.device_spec
-        self.logger = logger or TrainingLogger(cfg.output_dir)
+        self.logger = logger or TrainingLogger(cfg.output_dir, also_print=self.is_main,
+                                               write=self.is_main)
         num_lines = len(batcher._index)
         self.target_deltas = xva_target_deltas(max(num_lines, 1))
         self.graphs = GraphsWriter(cfg.output_dir, (1, 2),
-                                   {1: self.target_deltas[0], 2: self.target_deltas[1]})
+                                   {1: self.target_deltas[0], 2: self.target_deltas[1]},
+                                   write=self.is_main)
         self.ckpt = CheckpointManager(cfg.output_dir, prefix="xVAPitch")
         self.meter = ThroughputMeter()
         # the architecture beside the checkpoints, so that inference can
         # rebuild the model of any output directory
-        os.makedirs(cfg.output_dir, exist_ok=True)
-        with open(os.path.join(cfg.output_dir, "model_config.json"), "w") as f:
-            json.dump(dataclasses.asdict(model_cfg), f, indent=2)
+        if self.is_main:
+            os.makedirs(cfg.output_dir, exist_ok=True)
+            with open(os.path.join(cfg.output_dir, "model_config.json"), "w") as f:
+                json.dump(dataclasses.asdict(model_cfg), f, indent=2)
 
         # micro-batches are bucket-sized (XvaBatcher.batch_size_for), so gam
         # divides the target by the epoch plan's mean micro-batch
@@ -428,7 +476,7 @@ class XVAPitchTrainer:
         # that completes an update masks that update
         self._steps = {
             freeze: make_v3_step(self.model, self.disc, self.g_opt, self.d_opt, freeze,
-                                 hifi_only=cfg.hifi_only, use_amp=cfg.use_amp)
+                                 hifi_only=cfg.hifi_only, use_amp=cfg.use_amp, mesh=self.mesh)
             for freeze in (False, True)}
         self._set_up = False
         self.stage = 1
@@ -446,7 +494,7 @@ class XVAPitchTrainer:
         self.END_OF_TRAINING = False
         self.seed_seconds: Optional[float] = None
         # TensorBoard scalars every 21 updates (reference xva_train.py:757-771)
-        self.tb = make_tensorboard(cfg.output_dir)
+        self.tb = make_tensorboard(cfg.output_dir) if self.is_main else None
 
     # ---- set-up, resume, warm start ----
 
@@ -464,21 +512,29 @@ class XVAPitchTrainer:
 
         resumed = False
         if resume:
-            step = self.ckpt.latest_step()
-            if step is None and self.ckpt.foreign_steps():
-                raise RuntimeError(
-                    f"{self.ckpt.output_dir} holds JAX orbax checkpoints "
-                    f"{['xVAPitch_%d' % s for s in self.ckpt.foreign_steps()]} and no "
-                    "checkpoint of the PyTorch port, which cannot read them; resume them "
-                    "with the JAX package, or train in another output directory")
-            if step is not None:
-                _, state, host = self.ckpt.restore_latest(map_location=self.device)
-                self.load_checkpoint_state(state, host)
+            found = {"error": None, "state": None, "host": None}
+            if self.is_main:
+                step = self.ckpt.latest_step()
+                if step is None and self.ckpt.foreign_steps():
+                    found["error"] = (
+                        f"{self.ckpt.output_dir} holds JAX orbax checkpoints "
+                        f"{['xVAPitch_%d' % s for s in self.ckpt.foreign_steps()]} and no "
+                        "checkpoint of the PyTorch port, which cannot read them; resume "
+                        "them with the JAX package, or train in another output directory")
+                elif step is not None:
+                    _, found["state"], found["host"] = self.ckpt.restore_latest(
+                        map_location=self.device)
+            found = broadcast_from_host0(found)
+            if found["error"]:
+                raise RuntimeError(found["error"])
+            if found["state"] is not None:
+                self.load_checkpoint_state(found["state"], found["host"])
                 resumed = True
                 self.logger.log(f"[resume] stage {self.stage} iters {self.training_iters}")
         if not resumed and pretrained_ckpt:
             load_xvapitch_base(pretrained_ckpt, self.model, self.disc)
             self.logger.log(f"[warm start] base checkpoint {os.path.basename(pretrained_ckpt)}")
+        commit_replicated([self.model, self.disc], self.mesh)
         self._set_up = True
 
     def host_state(self) -> Dict[str, Any]:
@@ -524,10 +580,13 @@ class XVAPitchTrainer:
             return 0
         t0 = time.perf_counter()
         eval_fn = make_v3_loss_eval(self.model, use_amp=self.cfg.use_amp)
-        gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed + 999)
+        _, index, count = data_shard(self.mesh)
+        gen = shard_draws(torch.Generator(device=self.device).manual_seed(self.cfg.seed + 999),
+                          index, count)
         pending = []
         for batch in self.batcher.epoch(shuffle=False):
-            per = eval_fn(batch_to_device(batch, self.device), gen)
+            per = eval_fn(shard_batch(self.mesh, batch, self.device), gen)
+            per = all_gather_rows(per, self.mesh)
             pending.append((batch["ids"], per[: len(batch["ids"])]))
         count = 0
         if pending:
@@ -598,7 +657,7 @@ class XVAPitchTrainer:
         start = time.perf_counter()
         self.meter.start()
         pf = Prefetcher(self._batch_stream(),
-                        lambda t: (batch_to_device(t[0], self.device), t[0]["ids"],
+                        lambda t: (shard_batch(self.mesh, t[0], self.device), t[0]["ids"],
                                    int(np.sum(t[0]["slens"])), t[1]))
         stream = iter(pf)
         try:
@@ -621,6 +680,7 @@ class XVAPitchTrainer:
                     per = meta["per_sample_kl"] + meta["per_sample_mel"]
                     if "per_sample_pitch" in meta:
                         per = per + meta["per_sample_pitch"]
+                    per = all_gather_rows(per, self.mesh)
                     pending.append((ids, per[: len(ids)]))
 
                 if self.micro_steps % self.gam == 0:
@@ -700,7 +760,8 @@ class XVAPitchTrainer:
         else:
             self.patience_count = 0
 
-        self.ckpt.save(self.training_iters, self.checkpoint_state(), self.host_state())
+        if self.is_main:
+            self.ckpt.save(self.training_iters, self.checkpoint_state(), self.host_state())
 
     # ---- previews and export ----
 
@@ -712,8 +773,12 @@ class XVAPitchTrainer:
         cut to 128, ``y_lengths · hop`` samples written to
         ``viz/<updates>/sample_<i>.wav``. ``lang_id`` defaults to the
         finetune dataset's language (its first cache's). Sample i's noise
-        comes from a generator seeded i."""
+        comes from a generator seeded i. Writes nothing, and returns [], on a
+        rank other than 0."""
         from ..data.text.xva_processor import XvaTextProcessor
+
+        if not self.is_main:
+            return []
 
         if lang_id is None:
             caches = getattr(self.batcher, "caches", None)
@@ -751,7 +816,10 @@ class XVAPitchTrainer:
                lang_capabilities: Optional[List[str]] = None) -> str:
         """``{voice_name}.pt`` (the reference-layout fp16 state dict with the
         ``disc.*`` subtree) and its metadata ``.json`` in ``out_dir`` (the
-        output directory by default). Returns the ``.pt``'s path."""
+        output directory by default). Returns the ``.pt``'s path; None, with
+        nothing written, on a rank other than 0."""
+        if not self.is_main:
+            return None
         out_dir = out_dir or self.cfg.output_dir
         path = os.path.join(out_dir, f"{voice_name}.pt")
         export_xvapitch_v3(self.model, path, voice_name, lang=lang, base_emb=base_emb,
